@@ -9,20 +9,36 @@ Phases, each printed as it runs; any failure exits non-zero:
 
 1. device — requires ``torch.cuda.is_available()``; prints the card's
    name and power limit as ``nvidia-smi`` reports them;
-2. build — compiles every CUDA kernel of the port from the checkout's
-   sources with ``nvcc`` (one process per source, started together);
+2. build — compiles every CUDA kernel of the port (``dot_seen``,
+   ``flash_attention``, ``decode_attention``) from the checkout's sources
+   with ``nvcc``, one process per source, started together;
 3. kernels — holds each kernel against its plain PyTorch version on the
-   card, bit for bit, at the serve path's shape and at a stress shape, and
-   times both with CUDA events;
+   card: ``dot_seen`` bit for bit at the bigset serve path's shape and a
+   stress shape; ``flash_attention`` and ``decode_attention`` in bf16 and
+   fp32 at the model serve path's shapes and a stress shape (head dim 256,
+   MHA, ragged lengths), within the CPU tests' tolerances.  It times the
+   wrapper and the device (a CUDA graph of launches) with CUDA events,
+   the plain version, and, beside each attention kernel, PyTorch's
+   ``scaled_dot_product_attention`` on the same inputs and mask (a
+   yardstick the port never calls);
 4. main path — the bigset serve flow on ``cuda`` through the port's
    public entry points (``BigsetCluster`` → ``BigsetService`` →
    ``BigsetClient``): 3 replicas, 100,000 eight-byte elements, 2,000
    context-less removes, a full paginated Scan, the backpressure demo, a
    membership → context-remove round trip and a Count, every answer held
-   against a Python set; the kernel launch counts are zeroed just before
+   against a Python set; the ``dot_seen`` counts are zeroed just before
    and read just after;
 5. parity — the same flow at 20,000 elements and 400 removes on ``cpu``
-   (the plain versions) and on ``cuda`` must give identical pages.
+   (the plain versions) and on ``cuda`` must give identical pages;
+6. model — the model serve path: the full 62-layer ``gemma3-27b`` in
+   bf16 with random weights (seed 0) on ``cuda`` through ``ServeEngine``
+   (``max_batch=4, max_len=2048``), 6 seeded requests (four prompts of
+   4–16 tokens, one of 1,280 and one of 1,536), 16 new tokens each; the
+   attention counts are zeroed just before and read just after, and every
+   dispatch must have launched the CUDA kernels;
+7. model parity — the smoke ``gemma3-27b`` (fp32) served on ``cpu`` (the
+   plain versions) and on ``cuda`` (the kernels) gives identical greedy
+   token streams and logits within 1e-4.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  The script imports
@@ -41,11 +57,13 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # H100 SXM peaks (NVIDIA data sheet, as tabulated in the repo's measurement
-# notes): HBM bandwidth, and the non-tensor 32-bit rate.  The int32
-# compares of dot_seen issue on no more lanes than float32 does, so a bound
-# taken against this rate is a lower bound on the card's time.
+# notes): HBM bandwidth, the non-tensor 32-bit rate, and the dense bf16
+# tensor-core rate.  The int32 compares of dot_seen issue on no more lanes
+# than float32 does, so a bound taken against this rate is a lower bound on
+# the card's time; fp32 attention has no tensor-core path at fp32 precision.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12
 
 SET = b"smoke"
 PATH_SHAPE = dict(n_actors=1, n_runs=2000, n_dots=1024)
@@ -82,13 +100,17 @@ def phase_device(torch):
 
 def phase_build():
     from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import kernel as decode_kernel
     from repro_torch.kernels.dot_seen import kernel as dot_seen_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
 
-    sources = [dot_seen_kernel.SOURCE]
+    modules = [dot_seen_kernel, flash_kernel, decode_kernel]
+    sources = [m.SOURCE for m in modules]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.load, sources))
-    dot_seen_kernel.library()
+    for m in modules:
+        m.library()
     dt = time.perf_counter() - t0
     say(f"[build] {len(sources)} CUDA source(s) built for sm_90a in "
         f"{dt:.2f}s -> {build.build_dir()}")
@@ -251,6 +273,166 @@ def phase_kernels(torch, np):
     return results
 
 
+# ------------------------------------------------------- attention kernels
+# The model serve path's shapes (gemma3-27b: 32 query heads over 16 KV
+# heads, head dim 128): a prefill of 1,536 tokens in a global layer and in
+# a local one (window 1,024), and a decode step of 4 rows of a 2,048-slot
+# cache with ragged lengths.  The stress shapes take head dim 256, MHA and
+# ragged lengths.
+FLASH_SHAPES = {
+    "path": dict(B=1, Hq=32, Hkv=16, T=1536, S=1536, D=128, window=None),
+    "path-local": dict(B=1, Hq=32, Hkv=16, T=1536, S=1536, D=128,
+                       window=1024),
+    "stress": dict(B=2, Hq=8, Hkv=8, T=777, S=1000, D=256, window=None),
+}
+DECODE_SHAPES = {
+    "path": dict(B=4, Hq=32, Hkv=16, S=2048, D=128, window=None,
+                 lens=[1537, 1281, 9, 700]),
+    "stress": dict(B=3, Hq=8, Hkv=8, S=4096, D=256, window=1000,
+                   lens=[1, 2500, 4096]),
+}
+ATTN_TOL = {"flash_attention": {"bfloat16": 2e-2, "float32": 2e-5},
+            "decode_attention": {"bfloat16": 3e-2, "float32": 2e-5}}
+
+
+def _visible_pairs(T: int, S: int, window) -> int:
+    """(query, key) pairs a causal prefill computes, queries at the tail."""
+    total = 0
+    for i in range(T):
+        qpos = i + S - T
+        lo = max(0, qpos - window + 1) if window else 0
+        total += max(0, min(S, qpos + 1) - lo)
+    return total
+
+
+def _allclose(got, want, tol: float) -> bool:
+    """|got - want| <= tol + tol * |want| everywhere (atol = rtol = tol)."""
+    g, w = got.float(), want.float()
+    return bool(((g - w).abs() <= tol + tol * w.abs()).all())
+
+
+def _bound(nbytes: int, ops: int, dtype_name: str):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    peak = PEAK_BF16_OPS_PER_S if dtype_name == "bfloat16" else PEAK_OPS_PER_S
+    t_ops = ops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _sdpa_ms(torch, q, k, v, mask, iters):
+    """PyTorch's fused attention on the same inputs: the library yardstick
+    (never called by the port).  Returns (ms, its output)."""
+    import torch.nn.functional as F
+
+    def call():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              enable_gqa=True)
+    return time_ms(torch, call, iters), call()
+
+
+def phase_attention_kernels(torch):
+    """Both attention kernels against their plain versions, in bf16 and
+    fp32, at the path's and the stress shapes; timings of the bf16 runs."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_cuda,
+                                                      decode_attention_ref)
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention,
+                                                     flash_attention_cuda)
+
+    results = {}
+    gen = torch.Generator(device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).removeprefix("torch.")
+        for shape, s in FLASH_SHAPES.items():
+            gen.manual_seed(7)
+            q = torch.randn((s["B"], s["Hq"], s["T"], s["D"]), generator=gen,
+                            device="cuda", dtype=dtype)
+            k = torch.randn((s["B"], s["Hkv"], s["S"], s["D"]), generator=gen,
+                            device="cuda", dtype=dtype)
+            v = torch.randn(k.shape, generator=gen, device="cuda", dtype=dtype)
+            w = s["window"]
+            scale = s["D"] ** -0.5
+            got = flash_attention(q, k, v, causal=True, window=w)
+            torch.cuda.synchronize()
+            want = attention_ref(q, k, v, causal=True, window=w)
+            err = float((got.float() - want.float()).abs().max())
+            tol = ATTN_TOL["flash_attention"][dname]
+            check(_allclose(got, want, tol),
+                  f"flash_attention {shape} {dname}: max abs err {err}")
+            pairs = _visible_pairs(s["T"], s["S"], w)
+            ops = 4 * s["D"] * pairs * s["Hq"] * s["B"]
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+            bound_ms, bound_by = _bound(nbytes, ops, dname)
+            res = dict(shape=f"B={s['B']},Hq={s['Hq']},Hkv={s['Hkv']},"
+                       f"T={s['T']},S={s['S']},D={s['D']},window={w}",
+                       dtype=dname, max_abs_err=err, bound_ms=bound_ms,
+                       bound_by=bound_by, ops=ops, bytes=nbytes)
+            if dtype == torch.bfloat16:
+                iters = 10
+                res["ms"] = time_ms(torch, lambda: flash_attention(
+                    q, k, v, causal=True, window=w), iters)
+                res["device_ms"] = graph_ms(torch, lambda: flash_attention_cuda(
+                    q, k, v, causal=True, window=w, scale=scale), iters)
+                res["plain_ms"] = time_ms(torch, lambda: attention_ref(
+                    q, k, v, causal=True, window=w), iters)
+                qpos = torch.arange(s["T"], device="cuda")[:, None] + s["S"] - s["T"]
+                kpos = torch.arange(s["S"], device="cuda")[None, :]
+                mask = kpos <= qpos
+                if w is not None:
+                    mask &= kpos > qpos - w
+                res["library_ms"], lib = _sdpa_ms(torch, q, k, v, mask, iters)
+                res["library_err"] = float((lib.float() - want.float()).abs().max())
+            results[("flash_attention", shape, dname)] = res
+            say(f"[kernel] flash_attention {shape} {dname}: {json.dumps(res)}")
+
+        for shape, s in DECODE_SHAPES.items():
+            gen.manual_seed(8)
+            q = torch.randn((s["B"], s["Hq"], s["D"]), generator=gen,
+                            device="cuda", dtype=dtype)
+            k = torch.randn((s["B"], s["Hkv"], s["S"], s["D"]), generator=gen,
+                            device="cuda", dtype=dtype)
+            v = torch.randn(k.shape, generator=gen, device="cuda", dtype=dtype)
+            lens = torch.tensor(s["lens"], dtype=torch.int32, device="cuda")
+            w = s["window"]
+            scale = s["D"] ** -0.5
+            got = decode_attention(q, k, v, lens, window=w)
+            torch.cuda.synchronize()
+            want = decode_attention_ref(q, k, v, lens, window=w)
+            err = float((got.float() - want.float()).abs().max())
+            tol = ATTN_TOL["decode_attention"][dname]
+            check(_allclose(got, want, tol),
+                  f"decode_attention {shape} {dname}: max abs err {err}")
+            valid = [min(n, s["S"]) - (max(0, n - w) if w else 0)
+                     for n in s["lens"]]
+            ops = 4 * s["D"] * s["Hq"] * sum(valid)
+            nbytes = ((2 * s["Hkv"] * sum(valid) * s["D"] + 2 * q.numel())
+                      * q.element_size() + 4 * s["B"])
+            bound_ms, bound_by = _bound(nbytes, ops, dname)
+            res = dict(shape=f"B={s['B']},Hq={s['Hq']},Hkv={s['Hkv']},"
+                       f"S={s['S']},D={s['D']},window={w},lens={s['lens']}",
+                       dtype=dname, max_abs_err=err, bound_ms=bound_ms,
+                       bound_by=bound_by, ops=ops, bytes=nbytes)
+            if dtype == torch.bfloat16:
+                iters = 50
+                res["ms"] = time_ms(torch, lambda: decode_attention(
+                    q, k, v, lens, window=w), iters)
+                res["device_ms"] = graph_ms(torch, lambda: decode_attention_cuda(
+                    q, k, v, lens, window=w, scale=scale), iters)
+                res["plain_ms"] = time_ms(torch, lambda: decode_attention_ref(
+                    q, k, v, lens, window=w), iters)
+                pos = torch.arange(s["S"], device="cuda")[None, :]
+                mask = pos < lens[:, None]
+                if w is not None:
+                    mask &= pos >= lens[:, None] - w
+                res["library_ms"], lib = _sdpa_ms(
+                    torch, q[:, :, None, :], k, v, mask[:, None, None, :], iters)
+                res["library_err"] = float(
+                    (lib[:, :, 0].float() - want.float()).abs().max())
+            results[("decode_attention", shape, dname)] = res
+            say(f"[kernel] decode_attention {shape} {dname}: {json.dumps(res)}")
+    return results
+
+
 def drive(torch, device: str, n_elements: int, n_removes: int,
           page_size: int = 1000, timed: bool = False, demo: bool = False):
     """The serve flow on ``device``; returns the scan's pages as plain data.
@@ -370,6 +552,282 @@ def phase_parity(torch):
     say(f"[parity] cpu and cuda agree on {len(cpu)} pages at 20000 elements")
 
 
+# ------------------------------------------------------------- model path
+MODEL_ARCH = "gemma3-27b"
+MODEL_MAX_BATCH, MODEL_MAX_LEN, MODEL_NEW = 4, 2048, 16
+LONG_PROMPTS = (1536, 1280)
+
+
+class ProbedModel:
+    """The engine's model, with each serve step timed (the engine syncs on
+    every sampled token anyway) and its logits checked for finiteness."""
+
+    def __init__(self, torch, model):
+        self.torch, self.model = torch, model
+        self.prefill_s = self.decode_s = 0.0
+        self.prefill_tokens = self.decode_steps = 0
+        self.finite = []
+
+    def _timed(self, fn, *args, **kw):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = fn(*args, **kw)
+        self.torch.cuda.synchronize()
+        self.finite.append(self.torch.isfinite(logits).all())
+        return logits, cache, time.perf_counter() - t0
+
+    def prefill_step(self, params, batch, max_len=None):
+        logits, cache, dt = self._timed(self.model.prefill_step, params,
+                                        batch, max_len=max_len)
+        self.prefill_s += dt
+        self.prefill_tokens += batch["tokens"].numel()
+        return logits, cache
+
+    def decode_step(self, params, cache, tokens, cache_len):
+        logits, cache, dt = self._timed(self.model.decode_step, params, cache,
+                                        tokens, cache_len)
+        self.decode_s += dt
+        self.decode_steps += 1
+        return logits, cache
+
+
+def _trace(torch, fn, n: int):
+    """Device time by kernel name over ``n`` calls of ``fn``, from
+    ``torch.profiler`` (CUDA kernels only), and the host wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = ev.time_range.elapsed_us()
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + us
+    return by_name, wall
+
+
+def _kernel_class(name: str) -> str:
+    if "flash_attention_kernel" in name:
+        return "flash_attention"
+    if "decode_attention_kernel" in name:
+        return "decode_attention"
+    low = name.lower()
+    if any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass", "splitk")):
+        return "matmul"
+    return "other"
+
+
+def profile_steps(torch, eng, probe, ms_per_step: float, long_prompt):
+    """Where a decode step and a long prefill spend device time: one trace
+    of 3 decode steps of the served batch and one of the longest prompt's
+    prefill.  The busy share of a decode step is its traced device time
+    over the untraced step time measured while serving."""
+    model = probe.model
+    tokens = torch.zeros((eng.max_batch, 1), dtype=torch.int32, device="cuda")
+    steps = 3
+    for what, fn, n in (
+            ("decode step", lambda: model.decode_step(
+                eng.params, eng.cache, tokens, eng.cache_len), steps),
+            ("prefill", lambda: model.prefill_step(
+                eng.params, {"tokens": torch.as_tensor(
+                    long_prompt[None, :], device="cuda")},
+                max_len=eng.max_len), 1)):
+        try:
+            by_name, wall = _trace(torch, fn, n)
+        except RuntimeError as e:  # the profiler, not the path, failed
+            say(f"[model profile] {what}: not measured ({e})")
+            continue
+        total_us = sum(by_name.values())
+        if total_us == 0:
+            say(f"[model profile] {what}: the trace holds no device time")
+            continue
+        classes = {}
+        for name, us in by_name.items():
+            c = _kernel_class(name)
+            classes[c] = classes.get(c, 0.0) + us
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        out = dict(calls=n, device_ms_per_call=total_us / n / 1e3,
+                   traced_wall_ms_per_call=wall / n * 1e3,
+                   ms_by_class={c: us / n / 1e3 for c, us in classes.items()},
+                   top_kernels_ms=[[name[:80], us / n / 1e3]
+                                   for name, us in top])
+        if what == "decode step":
+            out["untraced_ms_per_step"] = ms_per_step
+            out["device_busy_share"] = total_us / n / 1e3 / ms_per_step
+        say(f"[model profile] {what}: {json.dumps(out)}")
+
+
+def model_prompts(np, vocab: int):
+    """Four prompts of 4-16 tokens drawn as ``launch/serve.py`` draws them,
+    and the two long ones, interleaved so both long ones are admitted in
+    the first wave."""
+    rng = np.random.default_rng(0)
+    short = [rng.integers(0, vocab, int(rng.integers(4, 16))) for _ in range(4)]
+    long_ = [rng.integers(0, vocab, n) for n in LONG_PROMPTS]
+    return [long_[0], short[0], long_[1], short[1], short[2], short[3]]
+
+
+def phase_model(torch, np):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config(MODEL_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg, "cuda")
+    params = model.init(0)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    leaves = [params["embed"]["tok"], params["final_norm"]["scale"]]
+    for layer in params["layers"]:
+        for part in layer.values():
+            leaves.extend(part.values())
+    n_params = sum(x.numel() for x in leaves)
+    weight_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    say(f"[model] {MODEL_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params} parameters, {weight_bytes / 1e9:.3f} GB of {cfg.dtype} "
+        f"weights, drawn on the card in {t_init:.3f}s")
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(cfg, params, max_batch=MODEL_MAX_BATCH,
+                      max_len=MODEL_MAX_LEN, device="cuda")
+    probe = ProbedModel(torch, eng.model)
+    eng.model = probe
+    reqs = [eng.submit(p, max_new_tokens=MODEL_NEW)
+            for p in model_prompts(np, cfg.vocab_size)]
+
+    fa.DISPATCHES.reset()
+    dec.DISPATCHES.reset()
+    t0 = time.perf_counter()
+    decode_tokens = 0
+    while eng.queue or any(s is not None for s in eng.slots):
+        decode_tokens += eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    flash, decode = fa.DISPATCHES.snapshot(), dec.DISPATCHES.snapshot()
+
+    check(all(r.done and len(r.out_tokens) == MODEL_NEW for r in reqs),
+          "a request was not served in full")
+    check(all(0 <= tok < cfg.vocab_size for r in reqs for tok in r.out_tokens),
+          "a sampled token is out of the vocabulary")
+    check(bool(torch.stack(probe.finite).all()), "a logit is not finite")
+    check(flash.launches == cfg.n_layers * len(reqs),
+          f"flash_attention dispatches {flash.launches} != "
+          f"{cfg.n_layers} x {len(reqs)} prompts")
+    check(decode.launches == cfg.n_layers * probe.decode_steps,
+          f"decode_attention dispatches {decode.launches} != "
+          f"{cfg.n_layers} x {probe.decode_steps} steps")
+    check(flash.kernel_launches == flash.launches and
+          decode.kernel_launches == decode.launches,
+          "an attention dispatch on the model path missed the CUDA kernel")
+    peak = torch.cuda.max_memory_allocated()
+    stats = dict(
+        requests=len(reqs), prompt_tokens=probe.prefill_tokens,
+        new_tokens=sum(len(r.out_tokens) for r in reqs),
+        decode_steps=probe.decode_steps, decode_tokens=decode_tokens,
+        wall_s=wall, prefill_s=probe.prefill_s, decode_s=probe.decode_s,
+        prefill_tok_per_s=probe.prefill_tokens / probe.prefill_s,
+        decode_tok_per_s=decode_tokens / probe.decode_s,
+        ms_per_decode_step=probe.decode_s / probe.decode_steps * 1e3,
+        weight_gb=weight_bytes / 1e9, peak_gb=peak / 1e9,
+        flash=vars(flash), decode=vars(decode))
+    say(f"[model] served: {json.dumps(stats)}")
+    for r in reqs:
+        say(f"[model]   req{r.rid} ({len(r.prompt)} prompt tokens): "
+            f"{r.out_tokens}")
+    profile_steps(torch, eng, probe, stats["ms_per_decode_step"],
+                  reqs[0].prompt)
+    del eng, params, probe, leaves
+    torch.cuda.empty_cache()
+    return flash, decode
+
+
+def tree_to(tree, device: str):
+    """A copy of a nest of dicts and lists of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _serve_smoke(np, cfg, params, device: str):
+    from repro_torch.serve import ServeEngine
+
+    eng = ServeEngine(cfg, params, max_batch=4, max_len=64, device=device)
+    rng = np.random.default_rng(1)
+    reqs = [eng.submit(rng.integers(0, cfg.vocab_size, n), max_new_tokens=16)
+            for n in (5, 21, 9, 30, 12, 17)]
+    eng.run_until_drained()
+    return [r.out_tokens for r in reqs]
+
+
+def phase_model_parity(torch, np):
+    """The smoke gemma3-27b in fp32, served on cpu and on cuda."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+
+    # fp32 products in full fp32 on the card (PyTorch's default, stated)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = smoke_config(MODEL_ARCH)
+    cpu_model = build_model(cfg, "cpu")
+    params = cpu_model.init(0)
+    # at random init the scaled embedding dominates the residual stream and
+    # greedy decoding repeats the prompt's last token whatever the layers
+    # do; a smaller embedding makes the streams depend on the attention
+    params["embed"]["tok"] *= 0.05
+    gpu_params = tree_to(params, "cuda")
+
+    cpu_streams = _serve_smoke(np, cfg, params, "cpu")
+    fa.DISPATCHES.reset()
+    dec.DISPATCHES.reset()
+    gpu_streams = _serve_smoke(np, cfg, gpu_params, "cuda")
+    torch.cuda.synchronize()
+    check(fa.DISPATCHES.kernel_launches == fa.DISPATCHES.launches > 0 and
+          dec.DISPATCHES.kernel_launches == dec.DISPATCHES.launches > 0,
+          "the cuda smoke run did not go through the kernels")
+    check(cpu_streams == gpu_streams,
+          f"token streams differ: cpu {cpu_streams} cuda {gpu_streams}")
+    varied = sum(len(set(s)) > 1 for s in cpu_streams)
+
+    gpu_model = build_model(cfg, "cuda")
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 21))
+    errs = []
+    lc, cc = cpu_model.prefill_step(params, {"tokens": torch.as_tensor(prompt)},
+                                    max_len=64)
+    lg, cg = gpu_model.prefill_step(
+        gpu_params, {"tokens": torch.as_tensor(prompt, device="cuda")},
+        max_len=64)
+    errs.append(float((lc - lg.cpu()).abs().max()))
+    lens = np.array([21, 21], np.int32)
+    for step in range(12):
+        tok = np.random.default_rng(10 + step).integers(0, cfg.vocab_size, (2, 1))
+        lc, cc = cpu_model.decode_step(params, cc, torch.as_tensor(tok),
+                                       torch.as_tensor(lens))
+        lg, cg = gpu_model.decode_step(
+            gpu_params, cg, torch.as_tensor(tok, device="cuda"),
+            torch.as_tensor(lens, device="cuda"))
+        errs.append(float((lc - lg.cpu()).abs().max()))
+        lens = lens + 1
+    check(max(errs) <= 1e-4, f"cpu and cuda logits differ by {max(errs)}")
+    say(f"[model parity] smoke {MODEL_ARCH} fp32: identical greedy streams "
+        f"for {len(cpu_streams)} requests ({varied} of them not a single "
+        f"repeated token); prefill + 12 decode steps' logits within "
+        f"{max(errs):.3g} of the cpu run")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -383,8 +841,11 @@ def main() -> int:
         phase_device(torch)
         phase_build()
         kres = phase_kernels(torch, np)
+        ares = phase_attention_kernels(torch)
         launched = phase_main(torch)
         phase_parity(torch)
+        flash, decode = phase_model(torch, np)
+        phase_model_parity(torch, np)
         leaked = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m == "repro" or m.startswith("repro."))
@@ -408,6 +869,28 @@ def main() -> int:
         "device_ms": path["device_ms"],
         "shape": path["shape"],
     }]
+    for name, replaces, ledger in (
+            ("flash_attention", "src/repro/kernels/flash_attention/kernel.py:102",
+             flash),
+            ("decode_attention",
+             "src/repro/kernels/decode_attention/kernel.py:74", decode)):
+        res = ares[(name, "path", "bfloat16")]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": ledger.kernel_launches,
+            "max_abs_err": max(r["max_abs_err"] for (n, _, _), r in ares.items()
+                               if n == name),
+            "ms": res["ms"],
+            "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"],
+            "library_ms": res["library_ms"],
+            "device_ms": res["device_ms"],
+            "shape": f"{res['shape']},bf16",
+        })
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,20 +1,23 @@
 """Carry state from the JAX package into the port, as plain data.
 
-The two packages share no objects, but their storage encodes keys and
-values identically, so a state built by one can be replayed into the other
-and both can answer the same queries.  The inputs are numpy arrays and
-``(key, value)`` byte pairs — never objects of ``repro``.
+The two packages share no objects.  Bigset storage encodes keys and values
+identically, so a state built by one can be replayed into the other and
+both can answer the same queries; model parameters carry across as numpy
+arrays.  The inputs are numpy arrays and ``(key, value)`` byte pairs —
+never objects of ``repro``.
 """
 from __future__ import annotations
 
-from typing import Iterable, Tuple
+from typing import Any, Dict, Iterable, Tuple
 
 import numpy as np
 import torch
 
+from .configs.base import ModelConfig
 from .core.bigset import BigsetVnode
 from .core.vclock import DenseClock
 from .device import DeviceLike, resolve_device
+from .models.transformer import _plan, layer_kinds
 from .storage.lsm import LsmStore
 
 
@@ -36,3 +39,48 @@ def vnode_from_items(actor, items: Iterable[Tuple[bytes, bytes]]) -> BigsetVnode
     store = LsmStore()
     store.put_batch([(bytes(k), bytes(v)) for k, v in items])
     return BigsetVnode(actor, store=store)
+
+
+def tensor_from_numpy(a, device: torch.device) -> torch.Tensor:
+    """A copy of array ``a`` on ``device``; bfloat16 arrays (numpy's
+    ``ml_dtypes`` type, which torch cannot read) go through their bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.tensor(a, device=device)
+
+
+def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any],
+                    device: DeviceLike = None) -> Dict[str, Any]:
+    """The port's parameters holding the JAX package's weights.
+
+    ``tree`` is the JAX parameter pytree with numpy leaves (for example
+    ``jax.tree.map(np.asarray, params)``).  Its scan-stacked ``groups``
+    leaves ``[n_groups, ...]`` are unstacked into one dict per layer, in
+    layer order; every matrix keeps JAX's ``[d_in, d_out]`` layout, so
+    ``x @ w`` computes the same product.
+    """
+    dev = resolve_device(device)
+    n_groups, _, g = _plan(cfg)
+    n_layers = len(layer_kinds(cfg))
+
+    def conv(node, index=None):
+        if isinstance(node, dict):
+            return {k: conv(v, index) for k, v in node.items()}
+        a = np.asarray(node)
+        return tensor_from_numpy(a if index is None else a[index], dev)
+
+    out: Dict[str, Any] = {"embed": conv(tree["embed"]),
+                           "final_norm": conv(tree["final_norm"])}
+    if "lm_head" in tree:
+        out["lm_head"] = conv(tree["lm_head"])
+    layers = []
+    for i in range(n_layers):
+        if i < n_groups * g:
+            grp, j = divmod(i, g)
+            layers.append(conv(tree["groups"][j], grp))
+        else:
+            layers.append(conv(tree["tail"][i - n_groups * g]))
+    out["layers"] = layers
+    return out

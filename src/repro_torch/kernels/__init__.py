@@ -1,9 +1,14 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
 * ``dot_seen`` — batched dot-membership filter (the bigset read fold),
-  CUDA C++ in ``dot_seen/csrc/dot_seen.cu``.
+  CUDA C++ in ``dot_seen/csrc/dot_seen.cu``;
+* ``flash_attention`` — blocked prefill attention (causal / sliding
+  window, GQA), CUDA C++ in ``flash_attention/csrc/flash_attention.cu``;
+* ``decode_attention`` — one token against a KV cache, CUDA C++ in
+  ``decode_attention/csrc/decode_attention.cu``.
 
 Each subpackage is ``kernel.py`` (builds the CUDA source and launches it),
 ``ops.py`` (the public wrapper: plain version for CPU tensors, the kernel
-for CUDA tensors) and ``ref.py`` (the plain PyTorch version).
+for CUDA tensors, a :class:`~.ledger.DispatchStats` ledger) and ``ref.py``
+(the plain PyTorch version).
 """

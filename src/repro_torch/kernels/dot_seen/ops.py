@@ -13,34 +13,12 @@ CUDA kernel.  The metrics registry lifts it via
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import torch
 
 from ...core.vclock import DenseClock
+from ..ledger import DispatchStats
 from .kernel import dot_seen_cuda
 from .ref import dot_seen_ref
-
-
-@dataclass
-class DispatchStats:
-    """Kernel-launch ledger: device calls and rows (dots) they covered."""
-
-    launches: int = 0         # dot_seen invocations (one device dispatch each)
-    rows: int = 0             # total rows dispatched, padding included
-    kernel_launches: int = 0  # subset of launches that ran the CUDA kernel
-
-    def snapshot(self) -> "DispatchStats":
-        return DispatchStats(**vars(self))
-
-    def delta(self, since: "DispatchStats") -> "DispatchStats":
-        return DispatchStats(
-            **{k: getattr(self, k) - getattr(since, k) for k in vars(self)})
-
-    def reset(self) -> None:
-        for k in vars(self):
-            setattr(self, k, 0)
-
 
 DISPATCHES = DispatchStats()
 

@@ -1,0 +1,178 @@
+"""Attention blocks: GQA/MHA, causal, sliding-window, KV caching.
+
+PyTorch port of :mod:`repro.models.attention`.  Three execution modes share
+one parameter set:
+
+* ``train`` / ``prefill``: full-sequence attention through
+  :func:`~repro_torch.kernels.flash_attention.flash_attention` (the CUDA
+  kernel on the card, its plain version on the CPU);
+* ``decode``: one token against a cache through
+  :func:`~repro_torch.kernels.decode_attention.decode_attention` — a
+  contiguous buffer for global layers, a **ring buffer of size window** for
+  sliding-window layers (keys are RoPE-rotated before caching, so slot
+  order is irrelevant to the softmax);
+* optional int8-quantised cache (per-token per-head scales).
+
+The JAX package calls its Pallas kernels only when asked (``use_pallas``);
+the port has no such switch.  Decode writes the new token's K and V into
+the cache **in place** (JAX returns an updated copy); the returned cache is
+the same dict.  Cross-attention (``kv_override``) comes with the
+encoder-decoder slice.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from ..kernels.decode_attention import decode_attention
+from ..kernels.flash_attention import flash_attention
+from .layers import dense_init, rope
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig,
+                   dtype: torch.dtype) -> Dict:
+    d, h, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": dense_init(gen, d, h * dh, dtype),
+        "wk": dense_init(gen, d, hk * dh, dtype),
+        "wv": dense_init(gen, d, hk * dh, dtype),
+        "wo": dense_init(gen, h * dh, d, dtype),
+    }
+
+
+# ----------------------------------------------------------- cache handling
+def quantize_kv(x: torch.Tensor, dtype: str
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """[B, Hkv, S, Dh] -> (stored, scale) with per-(token, head) scales."""
+    if dtype != "int8":
+        return x, None
+    xf = x.float()
+    amax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: Optional[torch.Tensor],
+                  dtype: torch.dtype) -> torch.Tensor:
+    if scale is None:
+        return q
+    return (q.float() * scale).to(dtype)
+
+
+def init_cache(cfg: ModelConfig, batch: int, length: int, *, window: bool,
+               dtype: torch.dtype, device) -> Dict:
+    """Zeroed cache for one attention layer."""
+    size = min(length, cfg.sliding_window) if (window and cfg.sliding_window) else length
+    hk, dh = cfg.n_kv_heads, cfg.head_dim
+    store_dtype = torch.int8 if cfg.kv_cache_dtype == "int8" else dtype
+    c = {
+        "k": torch.zeros((batch, hk, size, dh), dtype=store_dtype, device=device),
+        "v": torch.zeros((batch, hk, size, dh), dtype=store_dtype, device=device),
+    }
+    if cfg.kv_cache_dtype == "int8":
+        c["k_scale"] = torch.zeros((batch, hk, size, 1), dtype=torch.float32,
+                                   device=device)
+        c["v_scale"] = torch.zeros((batch, hk, size, 1), dtype=torch.float32,
+                                   device=device)
+    return c
+
+
+def _ring(x: torch.Tensor, T: int, keep: int, size: int,
+          rolled: bool) -> torch.Tensor:
+    """The last ``keep`` of T positions padded to ``size`` slots; rolled so
+    that absolute position p lives at slot ``p % size``."""
+    xc = x[:, :, T - keep:, :]
+    if size > keep:
+        xc = F.pad(xc, (0, 0, 0, size - keep))
+    if rolled:
+        xc = torch.roll(xc, (T - keep) % size, dims=2)
+    return xc.contiguous()
+
+
+# ------------------------------------------------------------------ forward
+def attention_forward(
+    p: Dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,                          # [B, T, D]
+    *,
+    positions: torch.Tensor,                  # [B, T] absolute positions
+    mode: str,                                # train | prefill | decode
+    window: Optional[int] = None,
+    cache: Optional[Dict] = None,
+    cache_len: Optional[torch.Tensor] = None,  # int32[B]
+    kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    max_cache_len: Optional[int] = None,      # prefill: cache capacity
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    if kv_override is not None:
+        raise NotImplementedError(
+            "cross-attention (kv_override) comes with the encoder-decoder "
+            "slice of the port")
+    B, T, D = x.shape
+    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = x.dtype
+
+    q = (x @ p["wq"]).reshape(B, T, h, dh)
+    k = (x @ p["wk"]).reshape(B, T, hk, dh)
+    v = (x @ p["wv"]).reshape(B, T, hk, dh)
+    if cfg.pos_embedding == "rope":
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    q = q.transpose(1, 2)  # [B, H, T, Dh]
+
+    new_cache = None
+    if mode == "decode":
+        if cache is None or cache_len is None or T != 1:
+            raise ValueError(
+                f"decode mode needs a cache, cache_len, and T == 1 "
+                f"(got cache={cache is not None}, "
+                f"cache_len={cache_len is not None}, T={T})")
+        k1 = k.transpose(1, 2)  # [B, Hkv, 1, Dh]
+        v1 = v.transpose(1, 2)
+        size = cache["k"].shape[2]
+        # ring-buffer slot: absolute position p lives at slot p % size
+        # (for global layers size == max length, so slot == cache_len)
+        slot = (cache_len % size).long()
+        rows = torch.arange(B, device=x.device)
+        kq, ks = quantize_kv(k1, cfg.kv_cache_dtype)
+        vq, vs = quantize_kv(v1, cfg.kv_cache_dtype)
+        # in place: row b's slot of every kv head
+        cache["k"][rows, :, slot, :] = kq[:, :, 0, :]
+        cache["v"][rows, :, slot, :] = vq[:, :, 0, :]
+        if cfg.kv_cache_dtype == "int8":
+            cache["k_scale"][rows, :, slot, :] = ks[:, :, 0, :]
+            cache["v_scale"][rows, :, slot, :] = vs[:, :, 0, :]
+        new_cache = cache
+
+        k_full = dequantize_kv(cache["k"], cache.get("k_scale"), dt)
+        v_full = dequantize_kv(cache["v"], cache.get("v_scale"), dt)
+        valid = torch.clamp(cache_len + 1, max=size).to(torch.int32)  # ring: whole buffer once wrapped
+        out = decode_attention(
+            q[:, :, 0, :].contiguous(), k_full, v_full, valid,
+            scale=dh ** -0.5)  # [B, H, Dh]
+        out = out[:, :, None, :]
+    else:
+        k = k.transpose(1, 2).contiguous()  # [B, Hkv, S, Dh]
+        v = v.transpose(1, 2).contiguous()
+        out = flash_attention(
+            q.contiguous(), k, v, causal=True, window=window,
+            scale=dh ** -0.5)
+        if mode == "prefill":
+            cap = max_cache_len or T
+            size = min(cap, window) if window else cap
+            keep = min(T, size)
+            rolled = keep < T or bool(window and size == window)
+            kc = _ring(k, T, keep, size, rolled)
+            vc = _ring(v, T, keep, size, rolled)
+            kq, ks = quantize_kv(kc, cfg.kv_cache_dtype)
+            vq, vs = quantize_kv(vc, cfg.kv_cache_dtype)
+            new_cache = {"k": kq, "v": vq}
+            if cfg.kv_cache_dtype == "int8":
+                new_cache["k_scale"] = ks
+                new_cache["v_scale"] = vs
+
+    out = out.transpose(1, 2).reshape(B, T, h * dh)
+    return out @ p["wo"], new_cache

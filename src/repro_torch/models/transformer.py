@@ -1,0 +1,228 @@
+"""Model assembly: the decoder-only LM of the dense architectures.
+
+PyTorch port of :mod:`repro.models.transformer`.  The JAX package runs its
+layer stack as ``jax.lax.scan`` over *repeating groups* (one group = the
+architecture's layer pattern, e.g. 6 for gemma3's 5 local : 1 global) with
+parameters stacked ``[n_groups, ...]``, and the layers that do not fill a
+group ("tail") unrolled.  PyTorch runs eagerly, so here the parameters are
+one dict per layer (``params["layers"]``, in layer order) and the stack is
+a Python loop.  The decode cache keeps the JAX layout — ``"groups"``: one
+dict per group position with leaves ``[n_groups, B, ...]``, ``"tail"``: one
+dict per tail layer with leaves ``[B, ...]`` — so the engine's splice rule
+and the caches of the two packages compare directly; layer ``i`` of the
+groups reads position ``i % group_len`` at index ``i // group_len``.
+
+Modes: ``train`` (logits), ``prefill`` (logits + cache), ``decode`` (one
+token + cache update, in place).  Mamba mixers, MoE FFNs and the
+encoder-decoder raise :class:`NotImplementedError`, and the vision
+frontend's ``patch_embeds`` is not taken: they come with later slices of
+the port.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from .attention import attention_forward, init_attention, init_cache
+from .layers import (dense_init, dtype_of, embed_init, init_rmsnorm,
+                     learned_positions, rmsnorm, softcap)
+from .mlp import dense_ffn, init_dense_ffn
+
+
+def _unsupported(cfg: ModelConfig, mixer: str, ffn: str) -> None:
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder comes with the encoder-decoder "
+            "slice of the port")
+    if mixer == "mamba":
+        raise NotImplementedError(
+            f"{cfg.name}: Mamba mixers come with the SSM slice of the port")
+    if ffn == "moe":
+        raise NotImplementedError(
+            f"{cfg.name}: MoE FFNs come with the MoE slice of the port")
+
+
+def layer_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
+    """(mixer, ffn) of every layer, in order; raises on what the port lacks."""
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    for mixer, ffn in kinds:
+        _unsupported(cfg, mixer, ffn)
+    return kinds
+
+
+def _plan(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(n_groups, n_tail, group_len) of the JAX package's layer plan."""
+    if not cfg.scan_layers:
+        return 0, cfg.n_layers, cfg.n_layers
+    g = cfg.group_len
+    n_groups = cfg.n_layers // g
+    return n_groups, cfg.n_layers - n_groups * g, g
+
+
+# ---------------------------------------------------------------------- init
+def init_layer(gen: torch.Generator, cfg: ModelConfig, ffn: str,
+               dtype: torch.dtype) -> Dict:
+    dev = gen.device
+    p: Dict[str, Any] = {"norm1": init_rmsnorm(cfg.d_model, dtype, dev),
+                         "attn": init_attention(gen, cfg, dtype)}
+    if ffn != "none":
+        p["norm2"] = init_rmsnorm(cfg.d_model, dtype, dev)
+        p["ffn"] = init_dense_ffn(gen, cfg, dtype)
+    return p
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
+    """Random parameters on ``gen.device``, drawn tensor by tensor."""
+    dtype = dtype_of(cfg)
+    kinds = layer_kinds(cfg)
+    dev = gen.device
+    params: Dict[str, Any] = {
+        "embed": {"tok": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype)},
+        "final_norm": init_rmsnorm(cfg.d_model, dtype, dev),
+    }
+    if cfg.pos_embedding == "learned":
+        length = cfg.decoder_positions or 2048
+        params["embed"]["pos"] = embed_init(gen, length, cfg.d_model, dtype)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype)
+    params["layers"] = [init_layer(gen, cfg, ffn, dtype) for _, ffn in kinds]
+    return params
+
+
+# --------------------------------------------------------------------- cache
+def init_decode_cache(cfg: ModelConfig, batch: int, length: int,
+                      device) -> Dict:
+    """Whole-model zeroed cache, in the JAX package's groups/tail layout."""
+    dtype = dtype_of(cfg)
+    kinds = layer_kinds(cfg)
+    n_groups, n_tail, g = _plan(cfg)
+
+    def one(mixer: str, lead: Tuple[int, ...] = ()) -> Dict:
+        c = init_cache(cfg, batch, length, window=(mixer == "attn_local"),
+                       dtype=dtype, device=device)
+        if not lead:
+            return c
+        return {name: t.new_zeros(lead + tuple(t.shape))
+                for name, t in c.items()}
+
+    cache: Dict[str, Any] = {}
+    if n_groups:
+        cache["groups"] = [one(kinds[j][0], (n_groups,)) for j in range(g)]
+    cache["tail"] = [one(kinds[n_groups * g + i][0]) for i in range(n_tail)]
+    return cache
+
+
+def layer_cache(cache: Dict, cfg: ModelConfig, i: int) -> Dict:
+    """Layer ``i``'s cache: views into ``cache``, so writes go through."""
+    n_groups, _, g = _plan(cfg)
+    if i < n_groups * g:
+        grp, j = divmod(i, g)
+        return {name: t[grp] for name, t in cache["groups"][j].items()}
+    return cache["tail"][i - n_groups * g]
+
+
+def _assemble_cache(cfg: ModelConfig, per_layer: List[Dict]) -> Dict:
+    """Per-layer prefill caches stacked into the groups/tail layout."""
+    n_groups, _, g = _plan(cfg)
+    cache: Dict[str, Any] = {}
+    if n_groups:
+        cache["groups"] = [
+            {name: torch.stack([per_layer[grp * g + j][name]
+                                for grp in range(n_groups)])
+             for name in per_layer[j]}
+            for j in range(g)]
+    cache["tail"] = per_layer[n_groups * g:]
+    return cache
+
+
+# ------------------------------------------------------------------- forward
+def apply_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor, mixer: str,
+                ffn: str, *, positions, mode, cache, cache_len,
+                max_cache_len: Optional[int] = None,
+                ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    window = cfg.sliding_window if mixer == "attn_local" else None
+    att, new_cache = attention_forward(
+        p["attn"], cfg, h, positions=positions, mode=mode, window=window, cache=cache, cache_len=cache_len,
+        max_cache_len=max_cache_len)
+    x = x + att
+    if ffn != "none":
+        h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
+        x = x + dense_ffn(p["ffn"], cfg, h2)
+    return x, new_cache
+
+
+def embed_tokens(params: Dict, cfg: ModelConfig,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    """``[B, T, d_model]`` token embeddings in the model dtype."""
+    dtype = dtype_of(cfg)
+    B, T = tokens.shape
+    table = params["embed"]["tok"]
+    x = torch.index_select(table, 0, tokens.reshape(-1)).reshape(
+        B, T, -1).to(dtype)
+    if cfg.scale_embeddings:
+        # the scale is rounded to the model dtype first, as JAX does
+        # (in bfloat16, sqrt(5376) = 73.32 becomes 73.5)
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
+    return x
+
+
+def forward(
+    params: Dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,                    # [B, T]
+    *,
+    mode: str = "train",                     # train | prefill | decode
+    cache: Optional[Dict] = None,
+    cache_len: Optional[torch.Tensor] = None,  # int32[B]
+    return_hidden: bool = False,
+    max_cache_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Returns (logits | hidden, new_cache).  Decode updates ``cache`` in
+    place and returns it."""
+    dtype = dtype_of(cfg)
+    B, T = tokens.shape
+    kinds = layer_kinds(cfg)
+
+    x = embed_tokens(params, cfg, tokens)
+    if mode == "decode":
+        if cache is None or cache_len is None:
+            raise ValueError("decode mode needs a cache and cache_len")
+        positions = cache_len[:, None]                      # [B, 1]
+    else:
+        positions = torch.arange(T, device=tokens.device)[None].expand(B, T)
+    if cfg.pos_embedding == "learned":
+        x = x + learned_positions(params["embed"]["pos"], positions).to(dtype)
+
+    new_caches: List[Dict] = []
+    for i, (mixer, ffn) in enumerate(kinds):
+        lc = layer_cache(cache, cfg, i) if cache is not None else None
+        x, nc = apply_layer(
+            params["layers"][i], cfg, x, mixer, ffn, positions=positions,
+            mode=mode, cache=lc, cache_len=cache_len,
+            max_cache_len=max_cache_len)
+        new_caches.append(nc if nc is not None else lc)
+
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if return_hidden:
+        out = x
+    else:
+        out = lm_logits(params, cfg, x)
+
+    new_cache = None
+    if mode == "decode":
+        new_cache = cache
+    elif mode == "prefill":
+        new_cache = _assemble_cache(cfg, new_caches)
+    return out, new_cache
+
+
+def lm_logits(params: Dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """Vocabulary logits of hidden states ``h`` (tied or untied head)."""
+    if cfg.tie_embeddings:
+        logits = h @ params["embed"]["tok"].t()
+    else:
+        logits = h @ params["lm_head"]
+    return softcap(logits, cfg.logit_softcap)

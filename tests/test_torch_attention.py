@@ -1,0 +1,197 @@
+"""The port's attention kernels' plain versions (and their wrappers, on the
+CPU) against the JAX package's references and its Pallas kernels in
+interpret mode, at the cases of ``tests/test_kernels.py`` plus ragged T.
+
+The CUDA kernels themselves run only on a card; ``chip_smoke.py`` and
+``tests/test_torch_cuda_kernels.py`` hold them against the same plain
+versions there.  Tolerances are those of the JAX package's
+kernel tests: 2e-5 in fp32; 2e-2 (prefill) and 3e-2 (decode) in bf16,
+where the two sides round scores and probabilities at other places.
+"""
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+from numpy.testing import assert_allclose
+
+from repro.kernels.decode_attention import (decode_attention_pallas,
+                                            decode_attention_ref as jax_decode_ref)
+from repro.kernels.flash_attention import (attention_ref as jax_attention_ref,
+                                           flash_attention_pallas)
+from repro_torch.kernels import decode_attention as dec_pkg
+from repro_torch.kernels import flash_attention as fa_pkg
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_ref)
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+
+TORCH_DT = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+
+
+def _pair(rng, shape, dtype):
+    """The same seeded normals as a JAX array and a torch tensor."""
+    a = jnp.asarray(rng.standard_normal(shape), dtype)
+    t = torch.tensor(np.asarray(a, np.float32)).to(TORCH_DT[dtype])
+    return a, t
+
+
+def _close(got, want, dtype, bf16_tol):
+    tol = bf16_tol if dtype == jnp.bfloat16 else 2e-5
+    assert_allclose(np.asarray(got.float() if isinstance(got, torch.Tensor)
+                               else got, np.float32),
+                    np.asarray(want, np.float32), atol=tol, rtol=tol)
+
+
+# ------------------------------------------------------------ flash attention
+FLASH_CASES = [
+    # B, Hq, Hkv, T, S, D, dtype, causal, window
+    (1, 2, 2, 128, 128, 64, jnp.float32, True, None),
+    (2, 4, 2, 256, 256, 64, jnp.float32, True, None),    # GQA group 2
+    (1, 8, 1, 128, 128, 128, jnp.float32, True, None),   # MQA-ish
+    (1, 2, 2, 256, 256, 128, jnp.bfloat16, True, None),
+    (1, 2, 2, 256, 256, 64, jnp.float32, True, 64),      # sliding window
+    (1, 2, 2, 256, 256, 64, jnp.float32, True, 128),
+    (1, 2, 2, 256, 256, 64, jnp.float32, True, 999),
+    (1, 1, 1, 128, 128, 64, jnp.float32, False, None),   # noncausal
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,T,S,D,dtype,causal,window", FLASH_CASES)
+def test_flash_plain_matches_jax_ref_and_pallas(B, Hq, Hkv, T, S, D, dtype,
+                                                causal, window):
+    rng = np.random.default_rng(0)
+    jq, tq = _pair(rng, (B, Hq, T, D), dtype)
+    jk, tk = _pair(rng, (B, Hkv, S, D), dtype)
+    jv, tv = _pair(rng, (B, Hkv, S, D), dtype)
+    got = flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == TORCH_DT[dtype] and got.shape == (B, Hq, T, D)
+    want = jax_attention_ref(jq, jk, jv, causal=causal, window=window)
+    _close(got, want, dtype, 2e-2)
+    pallas = flash_attention_pallas(jq, jk, jv, causal=causal, window=window,
+                                    block_q=64, block_kv=64)
+    _close(got, pallas, dtype, 2e-2)
+
+
+@pytest.mark.parametrize("T,S,window", [
+    (37, 200, None),     # ragged T at the tail of a longer context
+    (37, 200, 50),
+    (1, 130, 16),        # one query row
+    (130, 130, 24),      # ragged T == S, window
+    (1100, 1100, 300),   # past the plain version's 1024-row query chunk
+])
+def test_flash_plain_ragged_T(T, S, window):
+    rng = np.random.default_rng(1)
+    jq, tq = _pair(rng, (1, 4, T, 16), jnp.float32)
+    jk, tk = _pair(rng, (1, 2, S, 16), jnp.float32)
+    jv, tv = _pair(rng, (1, 2, S, 16), jnp.float32)
+    got = flash_attention(tq, tk, tv, causal=True, window=window)
+    want = jax_attention_ref(jq, jk, jv, causal=True, window=window)
+    _close(got, want, jnp.float32, None)
+
+
+def test_flash_fully_masked_rows_give_zero():
+    # more queries than keys: the first T - S rows see no key at all
+    rng = np.random.default_rng(2)
+    q = torch.from_numpy(rng.standard_normal((1, 2, 10, 16))).float()
+    k = torch.from_numpy(rng.standard_normal((1, 2, 4, 16))).float()
+    out = attention_ref(q, k, k.clone(), causal=True)
+    assert torch.all(out[:, :, :6] == 0)
+    assert torch.all(out[:, :, 6:].abs().sum(-1) > 0)
+
+
+# ------------------------------------------------------------ decode attention
+DECODE_CASES = [
+    # B, Hq, Hkv, S, D, dtype, window
+    (2, 4, 4, 256, 64, jnp.float32, None),
+    (1, 8, 2, 512, 64, jnp.float32, None),     # GQA group 4
+    (2, 4, 1, 256, 128, jnp.bfloat16, None),
+    (1, 4, 2, 512, 64, jnp.float32, 128),      # windowed decode
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,dtype,window", DECODE_CASES)
+def test_decode_plain_matches_jax_ref_and_pallas(B, Hq, Hkv, S, D, dtype,
+                                                 window):
+    rng = np.random.default_rng(3)
+    jq, tq = _pair(rng, (B, Hq, D), dtype)
+    jk, tk = _pair(rng, (B, Hkv, S, D), dtype)
+    jv, tv = _pair(rng, (B, Hkv, S, D), dtype)
+    lens = rng.integers(1, S + 1, B).astype(np.int32)
+    if window is not None:
+        lens[:] = 400
+    tl = torch.from_numpy(lens)
+    got = decode_attention(tq, tk, tv, tl, window=window)
+    assert got.dtype == TORCH_DT[dtype] and got.shape == (B, Hq, D)
+    want = jax_decode_ref(jq, jk, jv, jnp.asarray(lens), window=window)
+    _close(got, want, dtype, 3e-2)
+    pallas = decode_attention_pallas(jq, jk, jv, jnp.asarray(lens),
+                                     window=window, block_kv=128)
+    _close(got, pallas, dtype, 3e-2)
+
+
+def test_decode_plain_ragged_cache_len():
+    # one row per length class: a single slot, a partial tile, a full cache
+    rng = np.random.default_rng(4)
+    jq, tq = _pair(rng, (4, 6, 16), jnp.float32)
+    jk, tk = _pair(rng, (4, 3, 100, 16), jnp.float32)
+    jv, tv = _pair(rng, (4, 3, 100, 16), jnp.float32)
+    lens = np.array([1, 37, 99, 100], np.int32)
+    got = decode_attention(tq, tk, tv, torch.from_numpy(lens))
+    want = jax_decode_ref(jq, jk, jv, jnp.asarray(lens))
+    _close(got, want, jnp.float32, None)
+    # each row sees exactly its prefix: changing a slot past it changes nothing
+    tk2 = tk.clone()
+    tk2[0, :, 1:] = 1e3
+    again = decode_attention_ref(tq, tk2, tv, torch.from_numpy(lens))
+    assert torch.equal(again[0], got[0])
+
+
+# ------------------------------------------------------------------ wrappers
+def test_wrappers_count_cpu_calls_but_no_kernel_launch():
+    q = torch.zeros((1, 2, 8, 16))
+    k = torch.zeros((1, 1, 8, 16))
+    fa_pkg.DISPATCHES.reset()
+    dec_pkg.DISPATCHES.reset()
+    flash_attention(q, k, k)
+    decode_attention(q[:, :, 0].contiguous(), k, k,
+                     torch.tensor([3], dtype=torch.int32))
+    assert vars(fa_pkg.DISPATCHES) == dict(launches=1, rows=16,
+                                           kernel_launches=0)
+    assert vars(dec_pkg.DISPATCHES) == dict(launches=1, rows=2,
+                                            kernel_launches=0)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "mixed", "gqa", "contig", "window",
+                                 "rank", "lens"])
+def test_wrappers_check_their_arguments(bad):
+    q = torch.zeros((1, 4, 8, 16))
+    k = torch.zeros((1, 2, 8, 16))
+    v = torch.zeros((1, 2, 8, 16))
+    lens = torch.tensor([3], dtype=torch.int32)
+    kw = {}
+    if bad == "dtype":
+        q, k, v = q.half(), k.half(), v.half()
+    elif bad == "mixed":
+        k = k.double()
+    elif bad == "gqa":
+        q = torch.zeros((1, 3, 8, 16))
+    elif bad == "contig":
+        q = torch.zeros((1, 4, 16, 8)).transpose(2, 3)
+    elif bad == "window":
+        kw["window"] = 0
+    elif bad == "rank":
+        q = q[0]
+    elif bad == "lens":
+        lens = lens.long()
+    with pytest.raises((TypeError, ValueError)):
+        if bad == "lens":
+            decode_attention(q[:, :, 0].contiguous(), k, v, lens)
+        else:
+            flash_attention(q, k, v, **kw)
+
+
+def test_kernel_modules_build_nothing_on_import():
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    assert fk.library.cache_info().currsize == 0
+    assert dk.library.cache_info().currsize == 0
+    assert fk.SOURCE.is_file() and dk.SOURCE.is_file()

@@ -9,11 +9,15 @@ import pytest
 import torch
 
 from repro_torch.cluster import BigsetCluster
+from repro_torch.configs import smoke_config
 from repro_torch.core.bigset import BigsetVnode
 from repro_torch.core.clock import Clock
+from repro_torch.launch import serve as serve_launcher
 from repro_torch.launch import serve_bigset
+from repro_torch.models import build_model
 from repro_torch.query import QueryExecutor
 from repro_torch.query.batch import BatchVisibility
+from repro_torch.serve import ServeEngine
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
@@ -63,6 +67,20 @@ def test_port_modules_found():
     assert "repro_torch.kernels.dot_seen.ops" in mods
     assert "repro_torch.launch.serve_bigset" in mods
     assert (PORT / "kernels" / "dot_seen" / "csrc" / "dot_seen.cu").is_file()
+    for mod in ("configs", "configs.gemma3_27b", "models.attention",
+                "models.transformer", "models.model", "serve.engine",
+                "launch.serve", "kernels.flash_attention.ops",
+                "kernels.decode_attention.ops"):
+        assert f"repro_torch.{mod}" in mods
+    for name in ("flash_attention", "decode_attention"):
+        assert (PORT / "kernels" / name / "csrc" / f"{name}.cu").is_file()
+
+
+def test_port_configs_are_copies_without_shapes():
+    import repro_torch.configs as cfgs
+    assert not hasattr(cfgs, "input_specs")
+    assert not (PORT / "configs" / "shapes.py").exists()
+    assert len(cfgs.ARCHS) == 10
 
 
 @pytest.fixture
@@ -79,6 +97,13 @@ def test_default_device_raises_without_cuda(no_cuda):
         BatchVisibility(Clock(base={"a": 3}))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_bigset.main(["--elements", "10"])
+    cfg = smoke_config("gemma3-27b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(cfg, params={})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_launcher.main(["--arch", "gemma3-27b"])
 
 
 def test_cpu_is_taken_only_when_asked(no_cuda):
@@ -86,3 +111,10 @@ def test_cpu_is_taken_only_when_asked(no_cuda):
     assert cluster.device == torch.device("cpu")
     assert all(ex.device == torch.device("cpu")
                for ex in cluster._executors(cluster.actors))
+    cfg = smoke_config("gemma3-27b")
+    model = build_model(cfg, "cpu")
+    assert model.device == torch.device("cpu")
+    params = model.init(0)
+    assert params["embed"]["tok"].device == torch.device("cpu")
+    eng = ServeEngine(cfg, params, max_len=32, device="cpu")
+    assert eng.cache_len.device == torch.device("cpu")
