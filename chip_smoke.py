@@ -10,8 +10,9 @@ Phases, each printed as it runs; any failure exits non-zero:
 1. device — requires ``torch.cuda.is_available()``; prints the card's
    name and power limit as ``nvidia-smi`` reports them;
 2. build — compiles every CUDA kernel of the port (``dot_seen``,
-   ``flash_attention``, ``decode_attention``) from the checkout's sources
-   with ``nvcc``, one process per source, started together;
+   ``flash_attention``, ``decode_attention``, ``mamba_scan``) from the
+   checkout's sources with ``nvcc``, one process per source, started
+   together;
 3. kernels — holds each kernel against its plain PyTorch version on the
    card: ``dot_seen`` bit for bit at the bigset serve path's shape and a
    stress shape; ``flash_attention`` and ``decode_attention`` in bf16 and
@@ -20,7 +21,9 @@ Phases, each printed as it runs; any failure exits non-zero:
    wrapper and the device (a CUDA graph of launches) with CUDA events,
    the plain version, and, beside each attention kernel, PyTorch's
    ``scaled_dot_product_attention`` on the same inputs and mask (a
-   yardstick the port never calls);
+   yardstick the port never calls); ``mamba_scan`` in fp32, ``y`` and the
+   final state, at the SSM prefill's shape (T = 1,536, D = 8,192, N = 16),
+   a stress shape (B = 4, ragged T = 777) and N = 8, D = 64;
 4. main path — the bigset serve flow on ``cuda`` through the port's
    public entry points (``BigsetCluster`` → ``BigsetService`` →
    ``BigsetClient``): 3 replicas, 100,000 eight-byte elements, 2,000
@@ -38,7 +41,14 @@ Phases, each printed as it runs; any failure exits non-zero:
    dispatch must have launched the CUDA kernels;
 7. model parity — the smoke ``gemma3-27b`` (fp32) served on ``cpu`` (the
    plain versions) and on ``cuda`` (the kernels) gives identical greedy
-   token streams and logits within 1e-4.
+   token streams and logits within 1e-4;
+8. SSM model — the SSM serve path, after the ``gemma3-27b`` model is
+   freed: the full 64-layer ``falcon-mamba-7b`` in bf16 with random
+   weights (seed 0) through the same engine and the same six prompts; the
+   ``mamba_scan`` counts are zeroed just before and read just after, and
+   every one of the 64 x 6 prefill scans must have launched the kernel;
+9. SSM parity — the smoke ``falcon-mamba-7b`` (fp32) on ``cpu`` and on
+   ``cuda``: identical greedy token streams and logits within 1e-4.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  The script imports
@@ -103,8 +113,9 @@ def phase_build():
     from repro_torch.kernels.decode_attention import kernel as decode_kernel
     from repro_torch.kernels.dot_seen import kernel as dot_seen_kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.mamba_scan import kernel as mamba_kernel
 
-    modules = [dot_seen_kernel, flash_kernel, decode_kernel]
+    modules = [dot_seen_kernel, flash_kernel, decode_kernel, mamba_kernel]
     sources = [m.SOURCE for m in modules]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
@@ -433,6 +444,75 @@ def phase_attention_kernels(torch):
     return results
 
 
+# ------------------------------------------------------------ mamba scan
+# The SSM serve path's prefill scan (falcon-mamba-7b: d_inner 8,192, state
+# 16) over the 1,536-token prompt; a stress shape with B > 1 and ragged T;
+# and the smoke model's state of 8 at a narrow width.
+MAMBA_SHAPES = {
+    "path": dict(B=1, T=1536, D=8192, N=16),
+    "stress": dict(B=4, T=777, D=8192, N=16),
+    "n8": dict(B=2, T=333, D=64, N=8),
+}
+MAMBA_TOL = 2e-4  # the scan's tolerance in the CPU tests (fp32)
+
+
+def mamba_inputs(torch, s, seed: int):
+    """Seeded fp32 inputs on the card: step sizes and decays as the model
+    draws them (softplus of ~-4.6, A = -(1..N)), normal x, B, C and D."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    B, T, D, N = s["B"], s["T"], s["D"], s["N"]
+    x = normal(B, T, D)
+    delta = torch.nn.functional.softplus(normal(B, T, D) - 4.6)
+    A = -torch.arange(1, N + 1, dtype=torch.float32, device="cuda").repeat(D, 1)
+    A = A * torch.exp(0.1 * normal(D, N))
+    return x, delta, A, normal(B, T, N), normal(B, T, N), normal(D)
+
+
+def phase_mamba_kernel(torch):
+    """The selective-scan kernel against its plain version in fp32, ``y``
+    and the final state, at the three shapes; timings at each."""
+    from repro_torch.kernels.mamba_scan import (mamba_scan, mamba_scan_cuda,
+                                                mamba_scan_ref)
+
+    results = {}
+    for shape, s in MAMBA_SHAPES.items():
+        args = mamba_inputs(torch, s, seed=9)
+        y, hT = mamba_scan(*args)
+        torch.cuda.synchronize()
+        y_want, h_want = mamba_scan_ref(*args)
+        err_y = float((y - y_want).abs().max())
+        err_h = float((hT - h_want).abs().max())
+        check(_allclose(y, y_want, MAMBA_TOL) and
+              _allclose(hT, h_want, MAMBA_TOL),
+              f"mamba_scan {shape}: max abs err y {err_y}, h_T {err_h}")
+        B, T, D, N = s["B"], s["T"], s["D"], s["N"]
+        # x, delta read and y written once; B, C, A, D read and h_T written
+        nbytes = 4 * (3 * B * T * D + 2 * B * T * N + D * N + D + B * D * N)
+        # per state element and step: delta*A, exp, a*h, (dx)*B, +, *C, sum;
+        # per channel and step: delta*x, x*D, +
+        ops = B * T * D * (7 * N + 3)
+        bound_ms, bound_by = _bound(nbytes, ops, "float32")
+        iters = 20 if shape == "path" else 10
+        res = dict(shape=f"B={B},T={T},D={D},N={N}", dtype="float32",
+                   max_abs_err=max(err_y, err_h), max_abs_err_y=err_y,
+                   max_abs_err_h=err_h, max_abs_y=float(y_want.abs().max()),
+                   max_abs_h=float(h_want.abs().max()), bound_ms=bound_ms,
+                   bound_by=bound_by, ops=ops, bytes=nbytes)
+        res["ms"] = time_ms(torch, lambda: mamba_scan(*args), iters)
+        res["device_ms"] = graph_ms(torch, lambda: mamba_scan_cuda(*args),
+                                    iters)
+        # the plain version loops over T on the host: few iterations
+        res["plain_ms"] = time_ms(torch, lambda: mamba_scan_ref(*args), 2,
+                                  warmup=1)
+        results[shape] = res
+        say(f"[kernel] mamba_scan {shape}: {json.dumps(res)}")
+    return results
+
+
 def drive(torch, device: str, n_elements: int, n_removes: int,
           page_size: int = 1000, timed: bool = False, demo: bool = False):
     """The serve flow on ``device``; returns the scan's pages as plain data.
@@ -554,6 +634,7 @@ def phase_parity(torch):
 
 # ------------------------------------------------------------- model path
 MODEL_ARCH = "gemma3-27b"
+SSM_ARCH = "falcon-mamba-7b"
 MODEL_MAX_BATCH, MODEL_MAX_LEN, MODEL_NEW = 4, 2048, 16
 LONG_PROMPTS = (1536, 1280)
 
@@ -614,10 +695,9 @@ def _trace(torch, fn, n: int):
 
 
 def _kernel_class(name: str) -> str:
-    if "flash_attention_kernel" in name:
-        return "flash_attention"
-    if "decode_attention_kernel" in name:
-        return "decode_attention"
+    for kernel in ("flash_attention", "decode_attention", "mamba_scan"):
+        if f"{kernel}_kernel" in name:
+            return kernel
     low = name.lower()
     if any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass", "splitk")):
         return "matmul"
@@ -674,26 +754,42 @@ def model_prompts(np, vocab: int):
     return [long_[0], short[0], long_[1], short[1], short[2], short[3]]
 
 
-def phase_model(torch, np):
+def _leaves(tree):
+    """Every tensor of a nest of dicts and lists."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def serve_full_model(torch, np, arch: str, ledgers):
+    """Serve the six prompts on the full ``arch`` in bf16 with random
+    weights through ``ServeEngine``, with ``ledgers`` (name -> the kernel
+    wrappers' ``DISPATCHES``) zeroed just before and read just after.
+
+    Checks that every request is served in full, every token is in the
+    vocabulary, every logit is finite and every dispatch launched the CUDA
+    kernel; prints the path's metrics and a profile, then frees the model
+    and the engine.  Returns (config, requests, decode steps, counts)."""
+    import gc
+
     from repro_torch.configs import get_config
-    from repro_torch.kernels import decode_attention as dec
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import build_model
     from repro_torch.serve import ServeEngine
 
-    cfg = get_config(MODEL_ARCH)
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     model = build_model(cfg, "cuda")
     params = model.init(0)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    leaves = [params["embed"]["tok"], params["final_norm"]["scale"]]
-    for layer in params["layers"]:
-        for part in layer.values():
-            leaves.extend(part.values())
-    n_params = sum(x.numel() for x in leaves)
-    weight_bytes = sum(x.numel() * x.element_size() for x in leaves)
-    say(f"[model] {MODEL_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    n_params = sum(x.numel() for x in _leaves(params))
+    weight_bytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    say(f"[model {arch}] {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{n_params} parameters, {weight_bytes / 1e9:.3f} GB of {cfg.dtype} "
         f"weights, drawn on the card in {t_init:.3f}s")
 
@@ -705,31 +801,25 @@ def phase_model(torch, np):
     reqs = [eng.submit(p, max_new_tokens=MODEL_NEW)
             for p in model_prompts(np, cfg.vocab_size)]
 
-    fa.DISPATCHES.reset()
-    dec.DISPATCHES.reset()
+    for ledger in ledgers.values():
+        ledger.reset()
     t0 = time.perf_counter()
     decode_tokens = 0
     while eng.queue or any(s is not None for s in eng.slots):
         decode_tokens += eng.step()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    flash, decode = fa.DISPATCHES.snapshot(), dec.DISPATCHES.snapshot()
+    counts = {name: ledger.snapshot() for name, ledger in ledgers.items()}
 
     check(all(r.done and len(r.out_tokens) == MODEL_NEW for r in reqs),
-          "a request was not served in full")
+          f"{arch}: a request was not served in full")
     check(all(0 <= tok < cfg.vocab_size for r in reqs for tok in r.out_tokens),
-          "a sampled token is out of the vocabulary")
-    check(bool(torch.stack(probe.finite).all()), "a logit is not finite")
-    check(flash.launches == cfg.n_layers * len(reqs),
-          f"flash_attention dispatches {flash.launches} != "
-          f"{cfg.n_layers} x {len(reqs)} prompts")
-    check(decode.launches == cfg.n_layers * probe.decode_steps,
-          f"decode_attention dispatches {decode.launches} != "
-          f"{cfg.n_layers} x {probe.decode_steps} steps")
-    check(flash.kernel_launches == flash.launches and
-          decode.kernel_launches == decode.launches,
-          "an attention dispatch on the model path missed the CUDA kernel")
+          f"{arch}: a sampled token is out of the vocabulary")
+    check(bool(torch.stack(probe.finite).all()), f"{arch}: a logit is not finite")
+    check(all(c.kernel_launches == c.launches > 0 for c in counts.values()),
+          f"{arch}: a dispatch on the model path missed the CUDA kernel")
     peak = torch.cuda.max_memory_allocated()
+    ms_per_step = probe.decode_s / probe.decode_steps * 1e3
     stats = dict(
         requests=len(reqs), prompt_tokens=probe.prefill_tokens,
         new_tokens=sum(len(r.out_tokens) for r in reqs),
@@ -737,18 +827,52 @@ def phase_model(torch, np):
         wall_s=wall, prefill_s=probe.prefill_s, decode_s=probe.decode_s,
         prefill_tok_per_s=probe.prefill_tokens / probe.prefill_s,
         decode_tok_per_s=decode_tokens / probe.decode_s,
-        ms_per_decode_step=probe.decode_s / probe.decode_steps * 1e3,
-        weight_gb=weight_bytes / 1e9, peak_gb=peak / 1e9,
-        flash=vars(flash), decode=vars(decode))
-    say(f"[model] served: {json.dumps(stats)}")
+        ms_per_decode_step=ms_per_step,
+        # a decode step reads every weight once
+        weight_read_floor_ms=weight_bytes / PEAK_BYTES_PER_S * 1e3,
+        n_params=n_params, weight_gb=weight_bytes / 1e9, peak_gb=peak / 1e9,
+        **{name: vars(c) for name, c in counts.items()})
+    say(f"[model {arch}] served: {json.dumps(stats)}")
     for r in reqs:
-        say(f"[model]   req{r.rid} ({len(r.prompt)} prompt tokens): "
+        say(f"[model {arch}]   req{r.rid} ({len(r.prompt)} prompt tokens): "
             f"{r.out_tokens}")
-    profile_steps(torch, eng, probe, stats["ms_per_decode_step"],
-                  reqs[0].prompt)
-    del eng, params, probe, leaves
+    profile_steps(torch, eng, probe, ms_per_step, reqs[0].prompt)
+    n_reqs, steps = len(reqs), probe.decode_steps
+    del eng, params, probe, reqs
+    gc.collect()
     torch.cuda.empty_cache()
+    say(f"[model {arch}] freed: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+        f"still allocated")
+    return cfg, n_reqs, steps, counts
+
+
+def phase_model(torch, np):
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg, n_reqs, steps, counts = serve_full_model(
+        torch, np, MODEL_ARCH, {"flash": fa.DISPATCHES,
+                                "decode": dec.DISPATCHES})
+    flash, decode = counts["flash"], counts["decode"]
+    check(flash.launches == cfg.n_layers * n_reqs,
+          f"flash_attention dispatches {flash.launches} != "
+          f"{cfg.n_layers} x {n_reqs} prompts")
+    check(decode.launches == cfg.n_layers * steps,
+          f"decode_attention dispatches {decode.launches} != "
+          f"{cfg.n_layers} x {steps} steps")
     return flash, decode
+
+
+def phase_ssm_model(torch, np):
+    from repro_torch.kernels import mamba_scan as ms
+
+    cfg, n_reqs, _, counts = serve_full_model(
+        torch, np, SSM_ARCH, {"mamba_scan": ms.DISPATCHES})
+    scans = counts["mamba_scan"]
+    check(scans.launches == cfg.n_layers * n_reqs,
+          f"mamba_scan dispatches {scans.launches} != "
+          f"{cfg.n_layers} x {n_reqs} prompts")
+    return scans
 
 
 def tree_to(tree, device: str):
@@ -771,33 +895,32 @@ def _serve_smoke(np, cfg, params, device: str):
     return [r.out_tokens for r in reqs]
 
 
-def phase_model_parity(torch, np):
-    """The smoke gemma3-27b in fp32, served on cpu and on cuda."""
+def smoke_parity(torch, np, arch: str, ledgers):
+    """The smoke ``arch`` in fp32, served on cpu and on cuda; every
+    dispatch of ``ledgers`` in the cuda run must launch the kernel."""
     from repro_torch.configs import smoke_config
-    from repro_torch.kernels import decode_attention as dec
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import build_model
 
     # fp32 products in full fp32 on the card (PyTorch's default, stated)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = smoke_config(MODEL_ARCH)
+    cfg = smoke_config(arch)
     cpu_model = build_model(cfg, "cpu")
     params = cpu_model.init(0)
-    # at random init the scaled embedding dominates the residual stream and
-    # greedy decoding repeats the prompt's last token whatever the layers
-    # do; a smaller embedding makes the streams depend on the attention
-    params["embed"]["tok"] *= 0.05
+    if cfg.scale_embeddings:
+        # at random init the scaled embedding dominates the residual stream
+        # and greedy decoding repeats the prompt's last token whatever the
+        # layers do; a smaller embedding makes the streams depend on them
+        params["embed"]["tok"] *= 0.05
     gpu_params = tree_to(params, "cuda")
 
     cpu_streams = _serve_smoke(np, cfg, params, "cpu")
-    fa.DISPATCHES.reset()
-    dec.DISPATCHES.reset()
+    for ledger in ledgers:
+        ledger.reset()
     gpu_streams = _serve_smoke(np, cfg, gpu_params, "cuda")
     torch.cuda.synchronize()
-    check(fa.DISPATCHES.kernel_launches == fa.DISPATCHES.launches > 0 and
-          dec.DISPATCHES.kernel_launches == dec.DISPATCHES.launches > 0,
-          "the cuda smoke run did not go through the kernels")
+    check(all(d.kernel_launches == d.launches > 0 for d in ledgers),
+          f"the cuda smoke {arch} run did not go through the kernels")
     check(cpu_streams == gpu_streams,
           f"token streams differ: cpu {cpu_streams} cuda {gpu_streams}")
     varied = sum(len(set(s)) > 1 for s in cpu_streams)
@@ -821,11 +944,25 @@ def phase_model_parity(torch, np):
             torch.as_tensor(lens, device="cuda"))
         errs.append(float((lc - lg.cpu()).abs().max()))
         lens = lens + 1
-    check(max(errs) <= 1e-4, f"cpu and cuda logits differ by {max(errs)}")
-    say(f"[model parity] smoke {MODEL_ARCH} fp32: identical greedy streams "
+    check(max(errs) <= 1e-4,
+          f"{arch}: cpu and cuda logits differ by {max(errs)}")
+    say(f"[model parity] smoke {arch} fp32: identical greedy streams "
         f"for {len(cpu_streams)} requests ({varied} of them not a single "
         f"repeated token); prefill + 12 decode steps' logits within "
         f"{max(errs):.3g} of the cpu run")
+
+
+def phase_model_parity(torch, np):
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+
+    smoke_parity(torch, np, MODEL_ARCH, [fa.DISPATCHES, dec.DISPATCHES])
+
+
+def phase_ssm_parity(torch, np):
+    from repro_torch.kernels import mamba_scan as ms
+
+    smoke_parity(torch, np, SSM_ARCH, [ms.DISPATCHES])
 
 
 def main() -> int:
@@ -842,10 +979,13 @@ def main() -> int:
         phase_build()
         kres = phase_kernels(torch, np)
         ares = phase_attention_kernels(torch)
+        mres = phase_mamba_kernel(torch)
         launched = phase_main(torch)
         phase_parity(torch)
         flash, decode = phase_model(torch, np)
         phase_model_parity(torch, np)
+        scans = phase_ssm_model(torch, np)
+        phase_ssm_parity(torch, np)
         leaked = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m == "repro" or m.startswith("repro."))
@@ -891,6 +1031,22 @@ def main() -> int:
             "device_ms": res["device_ms"],
             "shape": f"{res['shape']},bf16",
         })
+    mpath = mres["path"]
+    kernels.append({
+        "name": "mamba_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan/kernel.py:54",
+        "launches": scans.kernel_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in mres.values()),
+        "ms": mpath["ms"],
+        "plain_ms": mpath["plain_ms"],
+        "bound_ms": mpath["bound_ms"],
+        "bound_by": mpath["bound_by"],
+        "library_ms": None,
+        "device_ms": mpath["device_ms"],
+        "shape": f"{mpath['shape']},fp32",
+    })
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

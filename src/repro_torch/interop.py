@@ -59,7 +59,8 @@ def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any],
     ``jax.tree.map(np.asarray, params)``).  Its scan-stacked ``groups``
     leaves ``[n_groups, ...]`` are unstacked into one dict per layer, in
     layer order; every matrix keeps JAX's ``[d_in, d_out]`` layout, so
-    ``x @ w`` computes the same product.
+    ``x @ w`` computes the same product.  Every leaf keeps its dtype: the
+    Mamba mixers' fp32 ``A_log`` and ``Dp`` stay fp32 in a bf16 model.
     """
     dev = resolve_device(device)
     n_groups, _, g = _plan(cfg)

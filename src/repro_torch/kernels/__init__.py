@@ -5,9 +5,14 @@
 * ``flash_attention`` — blocked prefill attention (causal / sliding
   window, GQA), CUDA C++ in ``flash_attention/csrc/flash_attention.cu``;
 * ``decode_attention`` — one token against a KV cache, CUDA C++ in
-  ``decode_attention/csrc/decode_attention.cu``.
+  ``decode_attention/csrc/decode_attention.cu``;
+* ``mamba_scan`` — the Mamba-1 selective scan, returning the final state
+  beside ``y``, CUDA C++ in ``mamba_scan/csrc/mamba_scan.cu``; its
+  ``mamba_step`` (one decode token) is plain PyTorch.
 
-Each subpackage is ``kernel.py`` (builds the CUDA source and launches it),
+This package imports none of them (``dot_seen`` pulls in ``core``): import
+the subpackage, e.g. ``from repro_torch.kernels.mamba_scan import
+mamba_scan``.  Each subpackage is ``kernel.py`` (builds the CUDA source and launches it),
 ``ops.py`` (the public wrapper: plain version for CPU tensors, the kernel
 for CUDA tensors, a :class:`~.ledger.DispatchStats` ledger) and ``ref.py``
 (the plain PyTorch version).

@@ -1,4 +1,4 @@
-"""Model assembly: the decoder-only LM of the dense architectures.
+"""Model assembly: the decoder-only LM of the dense and SSM architectures.
 
 PyTorch port of :mod:`repro.models.transformer`.  The JAX package runs its
 layer stack as ``jax.lax.scan`` over *repeating groups* (one group = the
@@ -13,10 +13,11 @@ and the caches of the two packages compare directly; layer ``i`` of the
 groups reads position ``i % group_len`` at index ``i // group_len``.
 
 Modes: ``train`` (logits), ``prefill`` (logits + cache), ``decode`` (one
-token + cache update, in place).  Mamba mixers, MoE FFNs and the
-encoder-decoder raise :class:`NotImplementedError`, and the vision
-frontend's ``patch_embeds`` is not taken: they come with later slices of
-the port.
+token + cache update, in place); the Mamba mixers of the SSM family serve
+``prefill`` and ``decode``.  Mamba mixers outside the SSM family (the
+hybrid), MoE FFNs and the encoder-decoder raise
+:class:`NotImplementedError`, and the vision frontend's ``patch_embeds`` is
+not taken: they come with later slices of the port.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from ..configs.base import ModelConfig
 from .attention import attention_forward, init_attention, init_cache
 from .layers import (dense_init, dtype_of, embed_init, init_rmsnorm,
                      learned_positions, rmsnorm, softcap)
+from .mamba import init_mamba, init_mamba_cache, mamba_forward
 from .mlp import dense_ffn, init_dense_ffn
 
 
@@ -36,9 +38,10 @@ def _unsupported(cfg: ModelConfig, mixer: str, ffn: str) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder comes with the encoder-decoder "
             "slice of the port")
-    if mixer == "mamba":
+    if mixer == "mamba" and cfg.family != "ssm":
         raise NotImplementedError(
-            f"{cfg.name}: Mamba mixers come with the SSM slice of the port")
+            f"{cfg.name}: Mamba mixers beside attention come with the hybrid "
+            "slice of the port")
     if ffn == "moe":
         raise NotImplementedError(
             f"{cfg.name}: MoE FFNs come with the MoE slice of the port")
@@ -62,11 +65,14 @@ def _plan(cfg: ModelConfig) -> Tuple[int, int, int]:
 
 
 # ---------------------------------------------------------------------- init
-def init_layer(gen: torch.Generator, cfg: ModelConfig, ffn: str,
+def init_layer(gen: torch.Generator, cfg: ModelConfig, mixer: str, ffn: str,
                dtype: torch.dtype) -> Dict:
     dev = gen.device
-    p: Dict[str, Any] = {"norm1": init_rmsnorm(cfg.d_model, dtype, dev),
-                         "attn": init_attention(gen, cfg, dtype)}
+    p: Dict[str, Any] = {"norm1": init_rmsnorm(cfg.d_model, dtype, dev)}
+    if mixer == "mamba":
+        p["mamba"] = init_mamba(gen, cfg, dtype)
+    else:
+        p["attn"] = init_attention(gen, cfg, dtype)
     if ffn != "none":
         p["norm2"] = init_rmsnorm(cfg.d_model, dtype, dev)
         p["ffn"] = init_dense_ffn(gen, cfg, dtype)
@@ -87,7 +93,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
         params["embed"]["pos"] = embed_init(gen, length, cfg.d_model, dtype)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype)
-    params["layers"] = [init_layer(gen, cfg, ffn, dtype) for _, ffn in kinds]
+    params["layers"] = [init_layer(gen, cfg, mixer, ffn, dtype)
+                        for mixer, ffn in kinds]
     return params
 
 
@@ -100,8 +107,11 @@ def init_decode_cache(cfg: ModelConfig, batch: int, length: int,
     n_groups, n_tail, g = _plan(cfg)
 
     def one(mixer: str, lead: Tuple[int, ...] = ()) -> Dict:
-        c = init_cache(cfg, batch, length, window=(mixer == "attn_local"),
-                       dtype=dtype, device=device)
+        if mixer == "mamba":
+            c = init_mamba_cache(cfg, batch, dtype, device)
+        else:
+            c = init_cache(cfg, batch, length, window=(mixer == "attn_local"),
+                           dtype=dtype, device=device)
         if not lead:
             return c
         return {name: t.new_zeros(lead + tuple(t.shape))
@@ -143,10 +153,14 @@ def apply_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor, mixer: str,
                 max_cache_len: Optional[int] = None,
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    window = cfg.sliding_window if mixer == "attn_local" else None
-    att, new_cache = attention_forward(
-        p["attn"], cfg, h, positions=positions, mode=mode, window=window, cache=cache, cache_len=cache_len,
-        max_cache_len=max_cache_len)
+    if mixer == "mamba":
+        att, new_cache = mamba_forward(p["mamba"], cfg, h, mode=mode,
+                                       cache=cache)
+    else:
+        window = cfg.sliding_window if mixer == "attn_local" else None
+        att, new_cache = attention_forward(
+            p["attn"], cfg, h, positions=positions, mode=mode, window=window,
+            cache=cache, cache_len=cache_len, max_cache_len=max_cache_len)
     x = x + att
     if ffn != "none":
         h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)

@@ -9,7 +9,8 @@ per token → stream tokens out → free the slot on EOS/limit.  Greedy
 
 The engine owns its cache and updates it in place: the splice copies into
 the slot, and a decode step writes each row's new K and V into its ring
-slot.  ``cache_len`` stays on the device.
+slot, or each Mamba layer's conv window and state.  ``cache_len`` stays on
+the device, and advances for SSM slots too, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -127,7 +128,9 @@ def _splice_cache(cache: Dict, pf_cache: Dict, slot: int) -> Dict:
 
     Grouped cache leaves carry ``[n_groups, B, ...]``; tail leaves carry
     ``[B, ...]`` — the batch axis comes from the path.  The other axes are
-    padded or sliced to the buffer's.
+    padded (with zeros at the end) or sliced to the buffer's, as in the JAX
+    package: a prompt shorter than the Mamba conv window leaves its history
+    rows first and the zeros after them (ROADMAP C5).
     """
     def visit(head: str, buf: torch.Tensor, new: torch.Tensor) -> None:
         baxis = 1 if head == "groups" else 0

@@ -70,9 +70,11 @@ def test_port_modules_found():
     for mod in ("configs", "configs.gemma3_27b", "models.attention",
                 "models.transformer", "models.model", "serve.engine",
                 "launch.serve", "kernels.flash_attention.ops",
-                "kernels.decode_attention.ops"):
+                "kernels.decode_attention.ops", "configs.falcon_mamba_7b",
+                "models.mamba", "kernels.mamba_scan.ops",
+                "kernels.mamba_scan.kernel", "kernels.mamba_scan.ref"):
         assert f"repro_torch.{mod}" in mods
-    for name in ("flash_attention", "decode_attention"):
+    for name in ("flash_attention", "decode_attention", "mamba_scan"):
         assert (PORT / "kernels" / name / "csrc" / f"{name}.cu").is_file()
 
 
@@ -104,6 +106,10 @@ def test_default_device_raises_without_cuda(no_cuda):
         ServeEngine(cfg, params={})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_launcher.main(["--arch", "gemma3-27b"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(smoke_config("falcon-mamba-7b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_launcher.main(["--arch", "falcon-mamba-7b"])
 
 
 def test_cpu_is_taken_only_when_asked(no_cuda):

@@ -96,6 +96,60 @@ def test_engine_token_streams_match_jax():
                                   np.asarray(jeng.cache_len))
 
 
+def _ssm_engines(prompts, new_tokens):
+    """The JAX and the port's engine, with the same smoke falcon-mamba-7b
+    weights, each run over ``prompts``."""
+    arch = "falcon-mamba-7b"
+    jcfg = jax_smoke_config(arch)
+    jparams = jax_build_model(jcfg).init(jax.random.key(0))
+    tparams = params_from_jax(smoke_config(arch),
+                              jax.tree.map(np.asarray, jparams), "cpu")
+    jeng = JaxServeEngine(jcfg, jparams, max_batch=4, max_len=64)
+    jreqs = [jeng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    teng = ServeEngine(smoke_config(arch), tparams, max_batch=4, max_len=64,
+                       device="cpu")
+    treqs = [teng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    return jeng, jreqs, teng, treqs
+
+
+def test_engine_ssm_token_streams_match_jax():
+    # falcon-mamba-7b does not scale its embedding: its greedy streams vary
+    # at random init without shrinking it
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 503, n) for n in (5, 21, 9) * 2]
+    jeng, jreqs, teng, treqs = _ssm_engines(prompts, 12)
+    jeng.run_until_drained()
+    teng.run_until_drained()
+    assert [r.out_tokens for r in treqs] == [r.out_tokens for r in jreqs]
+    assert all(r.done and len(r.out_tokens) == 12 for r in treqs)
+    assert sum(len(set(r.out_tokens)) > 1 for r in treqs) >= 3
+    # cache_len advances for SSM slots too, as in the JAX engine
+    np.testing.assert_array_equal(teng.cache_len.numpy(),
+                                  np.asarray(jeng.cache_len))
+
+
+def test_engine_ssm_short_prompt_keeps_the_reference_conv_history():
+    # A 2-token prompt is shorter than the conv window's 3 rows of history:
+    # prefill keeps its 2 rows and the splice pads the third with zeros
+    # *after* them, so decode reads a zero as the newest input (ROADMAP
+    # C5).  The port keeps this for parity with the JAX engine.
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 503, 2), rng.integers(0, 503, 7)]
+    jeng, jreqs, teng, treqs = _ssm_engines(prompts, 6)
+    jeng._admit()
+    teng._admit()
+    for jlayer, tlayer in zip(jeng.cache["groups"], teng.cache["groups"]):
+        conv = tlayer["conv"]                    # [n_groups, B, 3, Di]
+        assert conv[:, 0, :2].abs().sum() > 0 and conv[:, 0, 2].eq(0).all()
+        for name in ("conv", "h"):
+            np.testing.assert_allclose(tlayer[name].numpy(),
+                                       np.asarray(jlayer[name]),
+                                       atol=1e-4, rtol=1e-4)
+    jeng.run_until_drained()
+    teng.run_until_drained()
+    assert [r.out_tokens for r in treqs] == [r.out_tokens for r in jreqs]
+
+
 def test_splice_pads_and_slices_to_the_buffer():
     buf = {"groups": [{"k": torch.zeros((2, 3, 4, 5))}],
            "tail": [{"k": torch.zeros((3, 4, 5))}]}
@@ -123,6 +177,14 @@ def test_temperature_sampling_is_seeded():
 
     assert run(3) == run(3)
     assert all(0 <= t < cfg.vocab_size for t in run(4))
+
+
+def test_launcher_serves_the_ssm_smoke_config_on_cpu(capsys):
+    reqs = serve_launcher.main(["--arch", "falcon-mamba-7b", "--preset",
+                                "smoke", "--device", "cpu", "--requests", "3",
+                                "--max-new", "4"])
+    assert [len(r.out_tokens) for r in reqs] == [4, 4, 4]
+    assert "served 3 requests / 12 tokens" in capsys.readouterr().out
 
 
 def test_launcher_serves_the_smoke_config_on_cpu(capsys):

@@ -2,7 +2,8 @@
 
 The JAX parameters (``jax.random.key(0)``) are carried into the port with
 ``params_from_jax``; the same prompts and tokens, made with numpy, go
-through ``prefill_step`` and a run of ``decode_step`` calls on both sides.
+through ``prefill_step`` and a run of ``decode_step`` calls on both sides,
+for dense architectures and the SSM ``falcon-mamba-7b``.
 Logits agree within atol = rtol = 1e-4 in fp32: both sides compute the
 same products, but XLA:CPU and PyTorch sum in other orders.  The decode
 caches agree on every valid slot; an int8 cache may differ by one
@@ -24,7 +25,8 @@ from repro_torch.models import build_model
 from repro_torch.models.transformer import init_decode_cache, layer_cache
 
 TOL = dict(atol=1e-4, rtol=1e-4)
-ARCHS = ["gemma3-27b", "minitron-4b", "mistral-large-123b"]
+ARCHS = ["gemma3-27b", "minitron-4b", "mistral-large-123b",
+         "falcon-mamba-7b"]
 
 
 def _both(arch):
@@ -44,12 +46,18 @@ def _np(t):
 
 def _valid_slots(cache_j, cache_t, cfg, lens):
     """Every layer's cache, on the slots ``[0, min(len, size))`` of each
-    row, as (layer, name, jax array, port array, scale or None)."""
+    row (a Mamba layer's conv window and state whole), as (layer, name,
+    jax array, port array, scale or None)."""
     n_layers = cfg.n_layers
     for i in range(n_layers):
         lj = layer_cache(jax.tree.map(lambda a: torch.tensor(
             np.asarray(a, np.float32)), cache_j), cfg, i)
         lt = layer_cache(cache_t, cfg, i)
+        if "h" in lt:
+            for b in range(len(lens)):
+                for name in ("conv", "h"):
+                    yield i, name, lj[name][b].numpy(), _np(lt[name][b]), None
+            continue
         for b, n in enumerate(lens):
             size = lt["k"].shape[2]
             m = min(int(n), size)
@@ -113,6 +121,64 @@ def test_decode_cache_layout_matches_jax():
                 {k: tuple(v.shape) for k, v in j_layer.items()}
 
 
+def test_ssm_decode_cache_layout_matches_jax():
+    from repro.models.transformer import init_decode_cache as jax_cache
+    for scan in (True, False):   # groups, and every layer in the tail
+        cfg = smoke_config("falcon-mamba-7b").replace(scan_layers=scan)
+        tc = init_decode_cache(cfg, 3, 40, "cpu")
+        jc = jax_cache(jax_smoke_config("falcon-mamba-7b").replace(
+            scan_layers=scan), 3, 40)
+        assert set(tc) == set(jc)
+        for head in tc:
+            assert len(tc[head]) == len(jc[head])
+            for t_layer, j_layer in zip(tc[head], jc[head]):
+                assert {k: (tuple(v.shape), str(v.dtype).split(".")[-1])
+                        for k, v in t_layer.items()} == \
+                    {k: (tuple(v.shape), str(v.dtype))
+                     for k, v in j_layer.items()}
+
+
+def test_ssm_layers_in_the_tail_match_jax():
+    # scan_layers=False puts every layer in the tail: the other cache path
+    jcfg = jax_smoke_config("falcon-mamba-7b").replace(scan_layers=False)
+    tcfg = smoke_config("falcon-mamba-7b").replace(scan_layers=False)
+    jmodel = jax_build_model(jcfg)
+    jparams = jmodel.init(jax.random.key(1))
+    tparams = params_from_jax(tcfg, jax.tree.map(np.asarray, jparams), "cpu")
+    tmodel = build_model(tcfg, "cpu")
+    rng = np.random.default_rng(4)
+    prompt = rng.integers(0, tcfg.vocab_size, (2, 7)).astype(np.int32)
+    lj, cj = jmodel.prefill_step(jparams, {"tokens": jnp.asarray(prompt)})
+    lt, ct = tmodel.prefill_step(tparams, {"tokens": torch.from_numpy(prompt)})
+    assert_allclose(_np(lt), np.asarray(lj), **TOL)
+    assert "groups" not in ct and len(ct["tail"]) == tcfg.n_layers
+    lens = np.array([7, 7], np.int32)
+    for _ in range(3):
+        tok = rng.integers(0, tcfg.vocab_size, (2, 1)).astype(np.int32)
+        lj, cj = jmodel.decode_step(jparams, cj, jnp.asarray(tok),
+                                    jnp.asarray(lens))
+        lt, ct = tmodel.decode_step(tparams, ct, torch.from_numpy(tok),
+                                    torch.from_numpy(lens))
+        assert_allclose(_np(lt), np.asarray(lj), **TOL)
+        lens = lens + 1
+    for i, name, a, b, _ in _valid_slots(cj, ct, tcfg, lens):
+        assert_allclose(b, a, err_msg=f"layer {i} {name}", **TOL)
+
+
+def test_params_from_jax_keeps_the_mamba_fp32_leaves():
+    cfg = jax_smoke_config("falcon-mamba-7b").replace(dtype="bfloat16")
+    jparams = jax_build_model(cfg).init(jax.random.key(0))
+    tparams = params_from_jax(smoke_config("falcon-mamba-7b").replace(
+        dtype="bfloat16"), jax.tree.map(np.asarray, jparams), "cpu")
+    for i, layer in enumerate(tparams["layers"]):
+        jlayer = jparams["groups"][0]["mamba"]
+        for name, leaf in layer["mamba"].items():
+            want = torch.float32 if name in ("A_log", "Dp") else torch.bfloat16
+            assert leaf.dtype == want, name
+            assert np.array_equal(leaf.float().numpy(),
+                                  np.asarray(jlayer[name][i], np.float32)), name
+
+
 def test_embedding_scale_rounds_to_the_model_dtype():
     from repro_torch.models.transformer import embed_tokens
     cfg = smoke_config("gemma3-27b").replace(dtype="bfloat16", d_model=5376,
@@ -132,8 +198,8 @@ def test_embedding_scale_rounds_to_the_model_dtype():
     assert float(torch.tensor(5376 ** 0.5, dtype=torch.bfloat16)) == 73.5
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "granite-moe-1b-a400m",
-                                  "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
+                                  "granite-moe-1b-a400m", "whisper-tiny"])
 def test_later_slices_raise(arch):
     with pytest.raises(NotImplementedError, match="slice of the port"):
         build_model(smoke_config(arch), "cpu").init(0)
