@@ -10,9 +10,9 @@ Phases, each printed as it runs; any failure exits non-zero:
 1. device — requires ``torch.cuda.is_available()``; prints the card's
    name and power limit as ``nvidia-smi`` reports them;
 2. build — compiles every CUDA kernel of the port (``dot_seen``,
-   ``flash_attention``, ``decode_attention``, ``mamba_scan``) from the
-   checkout's sources with ``nvcc``, one process per source, started
-   together;
+   ``flash_attention``, ``decode_attention``, ``mamba_scan``,
+   ``clock_ops``) from the checkout's sources with ``nvcc``, one process
+   per source, started together;
 3. kernels — holds each kernel against its plain PyTorch version on the
    card: ``dot_seen`` bit for bit at the bigset serve path's shape and a
    stress shape; ``flash_attention`` and ``decode_attention`` in bf16 and
@@ -23,7 +23,13 @@ Phases, each printed as it runs; any failure exits non-zero:
    ``scaled_dot_product_attention`` on the same inputs and mask (a
    yardstick the port never calls); ``mamba_scan`` in fp32, ``y`` and the
    final state, at the SSM prefill's shape (T = 1,536, D = 8,192, N = 16),
-   a stress shape (B = 4, ragged T = 777) and N = 8, D = 64;
+   a stress shape (B = 4, ragged T = 777) and N = 8, D = 64; the clock
+   lattice's merge (``join``, ``subtract``, ``intersect``) and
+   ``popcount`` bit for bit at the bigset path's tombstone shape (one actor
+   of 2,000 runs), at 512 actors of 128 and of 1,024 runs, at 4 actors of
+   8,192 runs (too wide for shared memory: the merge's global-memory
+   route) and at an edge case (counters at 2^31 - 1 and -2^31, unsorted,
+   overlapping and duplicated runs, popcounts that wrap);
 4. main path — the bigset serve flow on ``cuda`` through the port's
    public entry points (``BigsetCluster`` → ``BigsetService`` →
    ``BigsetClient``): 3 replicas, 100,000 eight-byte elements, 2,000
@@ -31,24 +37,31 @@ Phases, each printed as it runs; any failure exits non-zero:
    membership → context-remove round trip and a Count, every answer held
    against a Python set; the ``dot_seen`` counts are zeroed just before
    and read just after;
-5. parity — the same flow at 20,000 elements and 400 removes on ``cpu``
+5. clock lattice — the ``clock_ops`` entry point on the clocks the main
+   path left: every replica's set clock and tombstone, dense on the card,
+   joined, subtracted and intersected pairwise and counted, every answer
+   equal to the sparse ``Clock``'s own; the ``clock_ops`` counts are zeroed
+   just before and read just after;
+6. parity — the same flow at 20,000 elements and 400 removes on ``cpu``
    (the plain versions) and on ``cuda`` must give identical pages;
-6. model — the model serve path: the full 62-layer ``gemma3-27b`` in
+7. model — the model serve path: the full 62-layer ``gemma3-27b`` in
    bf16 with random weights (seed 0) on ``cuda`` through ``ServeEngine``
    (``max_batch=4, max_len=2048``), 6 seeded requests (four prompts of
    4–16 tokens, one of 1,280 and one of 1,536), 16 new tokens each; the
    attention counts are zeroed just before and read just after, and every
    dispatch must have launched the CUDA kernels;
-7. model parity — the smoke ``gemma3-27b`` (fp32) served on ``cpu`` (the
+8. model parity — the smoke ``gemma3-27b`` (fp32) served on ``cpu`` (the
    plain versions) and on ``cuda`` (the kernels) gives identical greedy
-   token streams and logits within 1e-4;
-8. SSM model — the SSM serve path, after the ``gemma3-27b`` model is
+   token streams and logits within 1e-4; the smoke ``pixtral-12b`` (fp32)
+   with seeded ``patch_embeds`` gives identical greedy streams and logits
+   within 1e-4 on both, and other logits without the patches;
+9. SSM model — the SSM serve path, after the ``gemma3-27b`` model is
    freed: the full 64-layer ``falcon-mamba-7b`` in bf16 with random
    weights (seed 0) through the same engine and the same six prompts; the
    ``mamba_scan`` counts are zeroed just before and read just after, and
    every one of the 64 x 6 prefill scans must have launched the kernel;
-9. SSM parity — the smoke ``falcon-mamba-7b`` (fp32) on ``cpu`` and on
-   ``cuda``: identical greedy token streams and logits within 1e-4.
+10. SSM parity — the smoke ``falcon-mamba-7b`` (fp32) on ``cpu`` and on
+    ``cuda``: identical greedy token streams and logits within 1e-4.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  The script imports
@@ -110,12 +123,14 @@ def phase_device(torch):
 
 def phase_build():
     from repro_torch.kernels import build
+    from repro_torch.kernels.clock_ops import kernel as clock_kernel
     from repro_torch.kernels.decode_attention import kernel as decode_kernel
     from repro_torch.kernels.dot_seen import kernel as dot_seen_kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.mamba_scan import kernel as mamba_kernel
 
-    modules = [dot_seen_kernel, flash_kernel, decode_kernel, mamba_kernel]
+    modules = [dot_seen_kernel, flash_kernel, decode_kernel, mamba_kernel,
+               clock_kernel]
     sources = [m.SOURCE for m in modules]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
@@ -513,9 +528,236 @@ def phase_mamba_kernel(torch):
     return results
 
 
+# ------------------------------------------------------------- clock ops
+# The interval clock lattice (join, subtract, intersect: the boundary-sweep
+# merge; popcount) at the bigset path's tombstone shape (one actor of 2,000
+# single-dot runs, every 50th of 100,000 counters, as the main path leaves
+# it), at 512 actors of 128 runs ("a heavily churned clock",
+# benchmarks/bench_kernels.py) and of 1,024 runs (the Pallas kernel's stated
+# limit, "A <= 512 hosts, R <= 1024 runs"), at rows too wide for a block's
+# shared memory (the merge's global-memory route) and at an edge case.
+CLOCK_SHAPES = {"tomb": dict(A=1, R=2000), "churn": dict(A=512, R=128),
+                "stress": dict(A=512, R=1024), "wide": dict(A=4, R=8192)}
+CLOCK_ITERS = {"tomb": 20, "churn": 20, "stress": 3, "wide": 2, "edge": 50}
+CLOCK_OPS = {"join": "or", "subtract": "andnot", "intersect": "and"}
+INT32_MIN, INT32_MAX = -2**31, 2**31 - 1
+
+
+def clock_edge_inputs(np):
+    """Rows at 2^31 - 1 and at -2^31, unsorted, overlapping and duplicated
+    runs, empty slots mid-row, and popcounts that wrap (A = 6, Ra = 6,
+    Rb = 5)."""
+    E = (1, 0)
+    top, low = INT32_MAX, INT32_MIN
+    a = [[(top - 10, top), (5, 9), E, (top - 30, top - 25), E, E],
+         [(low, top - 3), E, E, E, E, E],
+         [(50, 80), (10, 20), E, (15, 60), (10, 20), (200, 200)],
+         [(1, 7), (9, 12), (9, 12), E, E, E],
+         [E, E, E, E, E, E],
+         [(0, top - 5), (10, top), (0, top), E, E, E]]
+    b = [[(top - 3, top), (top - 20, top - 12), E, (6, 6), E],
+         [(low, -5), (0, 2), (top - 1, top), E, (low, low)],
+         [(70, 90), E, (1, 5), (19, 19), (81, 199)],
+         [(1, 7), (9, 12), E, (8, 8), E],
+         [(3, 4), E, E, E, (top, top)],
+         [(0, 0), (top, top), E, E, E]]
+
+    def arrays(rows):
+        s = np.array([[r[0] for r in row] for row in rows], np.int64)
+        e = np.array([[r[1] for r in row] for row in rows], np.int64)
+        return s.astype(np.int32), e.astype(np.int32)
+    return arrays(a), arrays(b)
+
+
+def clock_inputs(torch, np, shape: str):
+    """Two clocks (A's and B's run pairs) on the card, and the events each
+    holds per row (int64, from the drawn runs)."""
+    rng = np.random.default_rng(13)
+    if shape == "edge":
+        a, b = clock_edge_inputs(np)
+    elif shape == "tomb":
+        # the tombstone the main path leaves, against 2,000 drawn runs
+        starts = (np.arange(2000, dtype=np.int32) * 50 + 1)[None, :]
+        a = (starts, starts.copy())
+        b = _canonical_runs(rng, 1, 2000, 100_000, 1.0, np)
+    else:
+        size = CLOCK_SHAPES[shape]
+        a = _canonical_runs(rng, size["A"], size["R"], INT32_MAX, 0.9, np)
+        b = _canonical_runs(rng, size["A"], size["R"], INT32_MAX, 0.9, np)
+    events = [np.maximum(hi.astype(np.int64) - lo.astype(np.int64) + 1, 0)
+              .sum(axis=1) for lo, hi in (a, b)]
+    return [torch.from_numpy(x).to("cuda") for x in (*a, *b)], events
+
+
+def plain_merge(torch, ref, sort_runs, a_s, a_e, b_s, b_e):
+    """The plain version of a merge op (merge, then sort) on the card, over
+    the rows in chunks: its [A, P, P] masks would not fit in one piece."""
+    p = a_s.shape[1] + b_s.shape[1]
+    rows = max(1, (1 << 27) // (p * p))  # about 1 GiB of int64 masks
+    outs = [sort_runs(*ref(a_s[lo:lo + rows], a_e[lo:lo + rows],
+                           b_s[lo:lo + rows], b_e[lo:lo + rows]))
+            for lo in range(0, a_s.shape[0], rows)]
+    return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
+
+
+def phase_clock_kernels(torch, np):
+    """Both clock-lattice kernels, through the entry points, against their
+    plain versions on the card at every shape, bit for bit after the sort;
+    lattice identities and the drawn event counts check the answers.  Then
+    each shape's timings: the wrapper, the device (a CUDA graph of bare
+    launches), the plain version, the bound and the sweep's compare count."""
+    from repro_torch.core.vclock import DenseClock, sort_runs
+    from repro_torch.kernels import clock_ops as co
+    from repro_torch.kernels.clock_ops.kernel import staged
+
+    refs = {"join": co.join_ref, "subtract": co.subtract_ref,
+            "intersect": co.intersect_ref}
+    card = torch.device("cuda", torch.cuda.current_device())
+    results = {}
+    for shape in (*CLOCK_SHAPES, "edge"):
+        (a_s, a_e, b_s, b_e), events = clock_inputs(torch, np, shape)
+        A, ra, rb = a_s.shape[0], a_s.shape[1], b_s.shape[1]
+        route = "shared" if staged(ra, rb, card) else "global"
+        check(route == ("global" if shape == "wide" else "shared"),
+              f"clock_ops {shape}: the merge took the {route} route")
+        a, b = DenseClock(a_s, a_e), DenseClock(b_s, b_e)
+        merged = {op: getattr(co, op)(a, b) for op in CLOCK_OPS}
+        counts = {"a": co.popcount(a), "b": co.popcount(b)}
+        counts.update({op: co.popcount(c) for op, c in merged.items()})
+        torch.cuda.synchronize()
+        err = 0
+        for op in CLOCK_OPS:
+            want = plain_merge(torch, refs[op], sort_runs, a_s, a_e, b_s, b_e)
+            for g, w in zip(merged[op], want):
+                err = max(err, int((g.long() - w.long()).abs().max()))
+            check(all(torch.equal(g, w) for g, w in zip(merged[op], want)),
+                  f"clock_ops {op} {shape}: the kernel and the plain version "
+                  f"differ (max abs err {err})")
+        for name, (s, e) in (("a", (a_s, a_e)), ("b", (b_s, b_e)),
+                             *((op, merged[op]) for op in CLOCK_OPS)):
+            want = co.popcount_ref(s, e)
+            err = max(err, int((counts[name].long() - want.long()).abs().max()))
+            check(torch.equal(counts[name], want),
+                  f"clock_ops popcount {shape} ({name}): kernel != plain")
+        if shape != "edge":
+            # no row reaches 2^31 events here, so the int32 counts are exact
+            pc = {k: v.long() for k, v in counts.items()}
+            check(int(pc["a"].sum()) == int(events[0].sum())
+                  and int(pc["b"].sum()) == int(events[1].sum()),
+                  f"clock_ops popcount {shape}: the counts miss drawn events")
+            check(torch.equal(pc["join"], pc["a"] + pc["b"] - pc["intersect"])
+                  and torch.equal(pc["subtract"], pc["a"] - pc["intersect"]),
+                  f"clock_ops {shape}: a lattice identity fails")
+
+        P = ra + rb
+        # each of the four inputs read once and both outputs written once;
+        # the same function needs at least a sort of a row's P edges
+        # (P log2 P compares); the reference's sweep does ~6 P^2 a row
+        merge_bytes = 8 * A * (ra + rb) + 2 * A * P * 4
+        merge_ops = A * P * int(np.ceil(np.log2(P)))
+        bound_ms, bound_by = _bound(merge_bytes, merge_ops, "int32")
+        iters = CLOCK_ITERS[shape]
+        plain_iters = 1 if shape in ("stress", "wide") else iters
+        res = dict(shape=f"A={A},Ra={ra},Rb={rb}", route=route,
+                   max_abs_err=err, bytes=merge_bytes, ops=merge_ops,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   sweep_compares=6 * A * P * P,
+                   sweep_compares_ms=6 * A * P * P / PEAK_OPS_PER_S * 1e3)
+        for op, mode in CLOCK_OPS.items():
+            fn = getattr(co, op)
+            res[op] = dict(
+                ms=time_ms(torch, lambda: fn(a, b), iters),
+                device_ms=graph_ms(torch, lambda: co.clock_merge_cuda(
+                    mode, a_s, a_e, b_s, b_e), iters),
+                plain_ms=time_ms(torch, lambda: plain_merge(
+                    torch, refs[op], sort_runs, a_s, a_e, b_s, b_e),
+                    plain_iters, warmup=1))
+        pop_bytes = 2 * A * ra * 4 + A * 4
+        pop_bound, pop_by = _bound(pop_bytes, 4 * A * ra, "int32")
+        res["popcount"] = dict(
+            ms=time_ms(torch, lambda: co.popcount(a), 200),
+            device_ms=graph_ms(torch, lambda: co.clock_popcount_cuda(a_s, a_e),
+                               200),
+            plain_ms=time_ms(torch, lambda: co.popcount_ref(a_s, a_e), 200),
+            bound_ms=pop_bound, bound_by=pop_by, bytes=pop_bytes)
+        results[shape] = res
+        say(f"[kernel] clock_ops {shape}: {json.dumps(res)}")
+    return results
+
+
+def _events_by_actor(clock, actors):
+    """Events per actor of a sparse clock, in the order of ``actors``."""
+    n = dict.fromkeys(actors, 0)
+    for actor, lo, hi in clock.iter_runs():
+        n[actor] += hi - lo + 1
+    return [n[a] for a in actors]
+
+
+def phase_clock_entry(torch, cluster):
+    """The clock lattice's entry point on the clocks the main path left:
+    each replica's set clock and tombstone, dense on the card, merged with
+    every replica's and counted; the ``clock_ops`` counts are zeroed just
+    before and read just after.  Every answer is held against the sparse
+    ``Clock``'s own join, subtract_clock, intersect and events."""
+    from repro_torch.core.vclock import from_clock, to_clock
+    from repro_torch.kernels import clock_ops as co
+
+    actors = list(cluster.actors)
+    index = {a: i for i, a in enumerate(actors)}
+    sparse = {}
+    for r, actor in enumerate(actors):
+        vnode = cluster.vnodes[actor]
+        sparse[f"set{r}"] = vnode.read_clock(SET)
+        sparse[f"tomb{r}"] = vnode.read_tombstone(SET)
+    dense = {name: from_clock(c, index, len(actors), device="cuda")
+             for name, c in sparse.items()}
+    n = len(actors)
+    # every replica's set clock with every replica's tombstone and set
+    # clock, and every tombstone with every tombstone
+    pairs = [(f"{x}{i}", f"{y}{j}") for i in range(n) for j in range(n)
+             for x, y in (("set", "tomb"), ("set", "set"), ("tomb", "tomb"))]
+    sparse_ops = {"join": "join", "subtract": "subtract_clock",
+                  "intersect": "intersect"}
+
+    for ledger in co.DISPATCHES:
+        ledger.reset()
+    t0 = time.perf_counter()
+    merged = {(op, x, y): getattr(co, op)(dense[x], dense[y])
+              for x, y in pairs for op in CLOCK_OPS}
+    counts = {name: co.popcount(c) for name, c in dense.items()}
+    counts.update({key: co.popcount(c) for key, c in merged.items()})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {name: ledger.snapshot()
+                for name, ledger in zip(co.DISPATCHES._fields, co.DISPATCHES)}
+
+    for (op, x, y), got in merged.items():
+        want = getattr(sparse[x], sparse_ops[op])(sparse[y])
+        check(to_clock(got, actors) == want,
+              f"clock_ops {op}({x}, {y}) on the path's clocks differs from "
+              f"the sparse Clock")
+        check(counts[(op, x, y)].tolist() == _events_by_actor(want, actors),
+              f"clock_ops popcount of {op}({x}, {y}) differs from the sparse "
+              f"Clock's events")
+    for name, c in sparse.items():
+        check(counts[name].tolist() == _events_by_actor(c, actors),
+              f"clock_ops popcount of {name} differs from the sparse Clock")
+    check(all(c.kernel_launches == c.launches > 0 for c in launched.values()),
+          "a clock_ops dispatch on the path's clocks missed the CUDA kernel")
+    widths = {name: c.n_runs for name, c in dense.items()}
+    say(f"[clock_ops] entry point on the main path's clocks ({n} replicas; "
+        f"runs per row {json.dumps(widths)}; events set "
+        f"{sparse['set0'].n_events()}, tombstone {sparse['tomb0'].n_events()}): "
+        f"{len(merged)} merges and {len(counts)} popcounts in {wall:.3f}s, "
+        f"all equal to the sparse Clock; dispatches "
+        f"{json.dumps({k: vars(v) for k, v in launched.items()})}")
+    return launched
+
+
 def drive(torch, device: str, n_elements: int, n_removes: int,
           page_size: int = 1000, timed: bool = False, demo: bool = False):
-    """The serve flow on ``device``; returns the scan's pages as plain data.
+    """The serve flow on ``device``; returns the scan's pages as plain data
+    and the cluster.
 
     Every answer is held against a Python set of what was written."""
     from repro_torch.cluster import BigsetCluster
@@ -604,7 +846,7 @@ def drive(torch, device: str, n_elements: int, n_removes: int,
         check(count == len(model), f"count {count} != model {len(model)}")
         say(f"{tag} membership ctx round trip ok; count {count}")
     client.close()
-    return pages
+    return pages, cluster
 
 
 def phase_main(torch):
@@ -612,7 +854,7 @@ def phase_main(torch):
 
     DISPATCHES.reset()
     t0 = time.perf_counter()
-    drive(torch, "cuda", 100_000, 2_000, timed=True, demo=True)
+    _, cluster = drive(torch, "cuda", 100_000, 2_000, timed=True, demo=True)
     torch.cuda.synchronize()
     launched = DISPATCHES.snapshot()
     say(f"[main] done in {time.perf_counter() - t0:.3f}s; dispatches "
@@ -620,12 +862,12 @@ def phase_main(torch):
     check(launched.kernel_launches > 0, "the main path launched no kernel")
     check(launched.kernel_launches == launched.launches,
           "a dot_seen dispatch on the main path missed the CUDA kernel")
-    return launched
+    return launched, cluster
 
 
 def phase_parity(torch):
-    cpu = drive(torch, "cpu", 20_000, 400)
-    cuda = drive(torch, "cuda", 20_000, 400)
+    cpu, _ = drive(torch, "cpu", 20_000, 400)
+    cuda, _ = drive(torch, "cuda", 20_000, 400)
     check(len(cpu) == len(cuda), "cpu and cuda page counts differ")
     for i, (a, b) in enumerate(zip(cpu, cuda)):
         check(a == b, f"page {i} differs between cpu and cuda")
@@ -965,6 +1207,70 @@ def phase_ssm_parity(torch, np):
     smoke_parity(torch, np, SSM_ARCH, [ms.DISPATCHES])
 
 
+VLM_ARCH = "pixtral-12b"
+
+
+def phase_vlm_parity(torch, np):
+    """The smoke ``pixtral-12b`` (fp32) with seeded ``patch_embeds`` on cpu
+    and on cuda: the same greedy stream from a prefill and 12 decode steps,
+    logits within 1e-4, and other logits without the patches (the splice
+    took effect on the card)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = smoke_config(VLM_ARCH)
+    rng = np.random.default_rng(3)
+    prompt = rng.integers(0, cfg.vocab_size, (2, 21))
+    patches = rng.standard_normal((2, cfg.n_patches, cfg.d_model)).astype(
+        np.float32)
+    params = build_model(cfg, "cpu").init(0)
+    gpu_params = tree_to(params, "cuda")
+
+    def greedy(device, p, with_patches=True):
+        model = build_model(cfg, device)
+        batch = {"tokens": torch.as_tensor(prompt, device=device)}
+        if with_patches:
+            batch["patch_embeds"] = torch.as_tensor(patches, device=device)
+        logits, cache = model.prefill_step(p, batch, max_len=64)
+        out, stream = [logits.cpu()], []
+        lens = torch.full((2,), prompt.shape[1], dtype=torch.int32,
+                          device=device)
+        for _ in range(12):
+            tok = logits.argmax(dim=-1).to(torch.int32)[:, None]
+            stream.append(tok.cpu())
+            logits, cache = model.decode_step(p, cache, tok, lens)
+            out.append(logits.cpu())
+            lens = lens + 1
+        return torch.cat(stream, dim=1).tolist(), out
+
+    cpu_stream, cpu_logits = greedy("cpu", params)
+    for ledger in (fa.DISPATCHES, dec.DISPATCHES):
+        ledger.reset()
+    gpu_stream, gpu_logits = greedy("cuda", gpu_params)
+    torch.cuda.synchronize()
+    check(all(d.kernel_launches == d.launches > 0
+              for d in (fa.DISPATCHES, dec.DISPATCHES)),
+          f"the cuda smoke {VLM_ARCH} run did not go through the kernels")
+    check(cpu_stream == gpu_stream,
+          f"{VLM_ARCH} greedy streams differ: cpu {cpu_stream} cuda "
+          f"{gpu_stream}")
+    err = max(float((c - g).abs().max()) for c, g in zip(cpu_logits,
+                                                         gpu_logits))
+    check(err <= 1e-4, f"{VLM_ARCH}: cpu and cuda logits differ by {err}")
+    _, plain_logits = greedy("cuda", gpu_params, with_patches=False)
+    moved = float((plain_logits[0] - gpu_logits[0]).abs().max())
+    check(moved > 0.1, f"{VLM_ARCH}: patch_embeds moved the prefill logits "
+          f"by only {moved}")
+    say(f"[model parity] smoke {VLM_ARCH} fp32 with patch_embeds: identical "
+        f"greedy streams {gpu_stream}; prefill + 12 decode steps' logits "
+        f"within {err:.3g} of the cpu run; without the patches the prefill "
+        f"logits move by {moved:.3g}")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -980,10 +1286,14 @@ def main() -> int:
         kres = phase_kernels(torch, np)
         ares = phase_attention_kernels(torch)
         mres = phase_mamba_kernel(torch)
-        launched = phase_main(torch)
+        cres = phase_clock_kernels(torch, np)
+        launched, cluster = phase_main(torch)
+        clock_launched = phase_clock_entry(torch, cluster)
+        del cluster
         phase_parity(torch)
         flash, decode = phase_model(torch, np)
         phase_model_parity(torch, np)
+        phase_vlm_parity(torch, np)
         scans = phase_ssm_model(torch, np)
         phase_ssm_parity(torch, np)
         leaked = sorted(m for m in sys.modules
@@ -1047,6 +1357,28 @@ def main() -> int:
         "device_ms": mpath["device_ms"],
         "shape": f"{mpath['shape']},fp32",
     })
+    tomb = cres["tomb"]
+    for name, replaces, ledger, res in (
+            ("clock_merge", "src/repro/kernels/clock_ops/kernel.py:91",
+             clock_launched["merge"], dict(tomb["join"], **{
+                 k: tomb[k] for k in ("bound_ms", "bound_by")})),
+            ("clock_popcount", "src/repro/kernels/clock_ops/kernel.py:132",
+             clock_launched["popcount"], tomb["popcount"])):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/clock_ops/csrc/clock_ops.cu",
+            "replaces": replaces,
+            "launches": ledger.kernel_launches,
+            "max_abs_err": max(r["max_abs_err"] for r in cres.values()),
+            "ms": res["ms"],
+            "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"],
+            "library_ms": None,
+            "device_ms": res["device_ms"],
+            "shape": tomb["shape"] + (",join" if name == "clock_merge" else ""),
+        })
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,11 +8,15 @@
   ``decode_attention/csrc/decode_attention.cu``;
 * ``mamba_scan`` — the Mamba-1 selective scan, returning the final state
   beside ``y``, CUDA C++ in ``mamba_scan/csrc/mamba_scan.cu``; its
-  ``mamba_step`` (one decode token) is plain PyTorch.
+  ``mamba_step`` (one decode token) is plain PyTorch;
+* ``clock_ops`` — the interval clock lattice (``join``, ``subtract``,
+  ``intersect``: a boundary-sweep run merge; ``popcount``), CUDA C++ in
+  ``clock_ops/csrc/clock_ops.cu``.
 
-This package imports none of them (``dot_seen`` pulls in ``core``): import
-the subpackage, e.g. ``from repro_torch.kernels.mamba_scan import
-mamba_scan``.  Each subpackage is ``kernel.py`` (builds the CUDA source and launches it),
+This package imports none of them (``dot_seen`` and ``clock_ops`` pull in
+``core``): import the subpackage, e.g. ``from repro_torch.kernels.mamba_scan
+import mamba_scan``.  Each subpackage is ``kernel.py`` (builds the CUDA
+source and launches it),
 ``ops.py`` (the public wrapper: plain version for CPU tensors, the kernel
 for CUDA tensors, a :class:`~.ledger.DispatchStats` ledger) and ``ref.py``
 (the plain PyTorch version).

@@ -38,10 +38,12 @@ class Model:
     def prefill_step(self, params, batch: Dict[str, torch.Tensor],
                      max_len: Optional[int] = None) -> Tuple[torch.Tensor, Any]:
         """(logits of the last position ``[B, vocab]``, a fresh cache of
-        capacity ``max_len``)."""
+        capacity ``max_len``).  ``batch`` holds ``tokens`` and, for a vision
+        frontend, ``patch_embeds``."""
         tokens = batch["tokens"]
         hidden, cache = forward(
-            params, self.cfg, tokens, mode="prefill", return_hidden=True,
+            params, self.cfg, tokens, mode="prefill",
+            patch_embeds=batch.get("patch_embeds"), return_hidden=True,
             max_cache_len=max_len or tokens.shape[1] + 64)
         logits = lm_logits(params, self.cfg, hidden[:, -1:, :])[:, 0, :]
         return logits, cache

@@ -16,8 +16,10 @@ Modes: ``train`` (logits), ``prefill`` (logits + cache), ``decode`` (one
 token + cache update, in place); the Mamba mixers of the SSM family serve
 ``prefill`` and ``decode``.  Mamba mixers outside the SSM family (the
 hybrid), MoE FFNs and the encoder-decoder raise
-:class:`NotImplementedError`, and the vision frontend's ``patch_embeds`` is
-not taken: they come with later slices of the port.
+:class:`NotImplementedError`: they come with later slices of the port.  The
+vision frontend's ``patch_embeds`` (precomputed, as in the JAX package) are
+spliced over the leading positions after the embedding scale and before the
+learned positions, as the JAX ``forward`` does.
 """
 from __future__ import annotations
 
@@ -191,16 +193,21 @@ def forward(
     mode: str = "train",                     # train | prefill | decode
     cache: Optional[Dict] = None,
     cache_len: Optional[torch.Tensor] = None,  # int32[B]
+    patch_embeds: Optional[torch.Tensor] = None,  # [B, P, d_model]
     return_hidden: bool = False,
     max_cache_len: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (logits | hidden, new_cache).  Decode updates ``cache`` in
-    place and returns it."""
+    place and returns it.  For a vision frontend, ``patch_embeds`` replace
+    the first ``P`` (scaled) token embeddings."""
     dtype = dtype_of(cfg)
     B, T = tokens.shape
     kinds = layer_kinds(cfg)
 
     x = embed_tokens(params, cfg, tokens)
+    if patch_embeds is not None and cfg.frontend == "vision":
+        n_patches = patch_embeds.shape[1]
+        x = torch.cat([patch_embeds.to(dtype), x[:, n_patches:, :]], dim=1)
     if mode == "decode":
         if cache is None or cache_len is None:
             raise ValueError("decode mode needs a cache and cache_len")

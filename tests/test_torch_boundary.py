@@ -72,10 +72,38 @@ def test_port_modules_found():
                 "launch.serve", "kernels.flash_attention.ops",
                 "kernels.decode_attention.ops", "configs.falcon_mamba_7b",
                 "models.mamba", "kernels.mamba_scan.ops",
-                "kernels.mamba_scan.kernel", "kernels.mamba_scan.ref"):
+                "kernels.mamba_scan.kernel", "kernels.mamba_scan.ref",
+                "kernels.clock_ops", "kernels.clock_ops.ops",
+                "kernels.clock_ops.kernel", "kernels.clock_ops.ref"):
         assert f"repro_torch.{mod}" in mods
-    for name in ("flash_attention", "decode_attention", "mamba_scan"):
+    for name in ("flash_attention", "decode_attention", "mamba_scan",
+                 "clock_ops"):
         assert (PORT / "kernels" / name / "csrc" / f"{name}.cu").is_file()
+
+
+def test_clock_ops_import_loads_no_jax_and_builds_nothing(tmp_path):
+    # no nvcc on PATH or under CUDA_HOME, and an empty build directory: the
+    # import must not look for either, and the CPU route must not build
+    build = tmp_path / "build"
+    code = (
+        "import sys, torch\n"
+        "import repro_torch.kernels.clock_ops as co\n"
+        "from repro_torch.core.vclock import zero\n"
+        "c = zero(3, 2, device='cpu')\n"
+        "co.join(c, c); co.popcount(c)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "built = co.kernel.library.cache_info().currsize\n"
+        "print(bad, built)\n"
+        "sys.exit(1 if bad or built else 0)\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
+             "CUDA_HOME": str(tmp_path / "no-cuda"),
+             "REPRO_TORCH_BUILD_DIR": str(build)},
+        timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert not build.exists()
 
 
 def test_port_configs_are_copies_without_shapes():

@@ -108,6 +108,41 @@ def test_prefill_and_decode_match_jax(arch):
     assert checked == tcfg.n_layers * B * 2
 
 
+def test_vision_patch_embeds_are_spliced_as_jax_does():
+    # pixtral-12b's frontend is stubbed in both packages: precomputed patch
+    # embeddings replace the first n_patches scaled token embeddings
+    jcfg, tcfg, jmodel, jparams, tmodel, tparams = _both("pixtral-12b")
+    assert tcfg.frontend == "vision" and tcfg.n_patches == 8
+    rng = np.random.default_rng(8)
+    B, T, max_len = 2, 12, 40
+    prompt = rng.integers(0, tcfg.vocab_size, (B, T)).astype(np.int32)
+    patches = rng.standard_normal((B, tcfg.n_patches, tcfg.d_model)
+                                  ).astype(np.float32)
+
+    lj, cj = jmodel.prefill_step(
+        jparams, {"tokens": jnp.asarray(prompt),
+                  "patch_embeds": jnp.asarray(patches)}, max_len=max_len)
+    lt, ct = tmodel.prefill_step(
+        tparams, {"tokens": torch.from_numpy(prompt),
+                  "patch_embeds": torch.from_numpy(patches)}, max_len=max_len)
+    assert_allclose(_np(lt), np.asarray(lj), **TOL)
+    lens = np.full(B, T, np.int32)
+    checked = 0
+    for i, name, a, b, _ in _valid_slots(cj, ct, tcfg, lens):
+        assert_allclose(b, a, err_msg=f"layer {i} {name}", **TOL)
+        checked += 1
+    assert checked == tcfg.n_layers * B * 2
+
+    # the splice took effect: without the patches both packages give other
+    # logits, by far more than the tolerance
+    lj_plain, _ = jmodel.prefill_step(jparams, {"tokens": jnp.asarray(prompt)},
+                                      max_len=max_len)
+    lt_plain, _ = tmodel.prefill_step(
+        tparams, {"tokens": torch.from_numpy(prompt)}, max_len=max_len)
+    assert_allclose(_np(lt_plain), np.asarray(lj_plain), **TOL)
+    assert np.abs(_np(lt) - np.asarray(lj_plain)).max() > 0.1
+
+
 def test_decode_cache_layout_matches_jax():
     from repro.models.transformer import init_decode_cache as jax_cache
     cfg = smoke_config("gemma3-27b")
