@@ -12,16 +12,20 @@ Phases, each printed as it runs; any failure exits non-zero:
 2. build — compiles every CUDA kernel of the port (``dot_seen``,
    ``flash_attention``, ``decode_attention``, ``mamba_scan``,
    ``clock_ops``) from the checkout's sources with ``nvcc``, one process
-   per source, started together;
+   per source, started together, and beside them prints what
+   ``nvcc -Xptxas -v`` reports (registers, shared memory, spills) for the
+   attention kernels' tensor-core and split-KV routes;
 3. kernels — holds each kernel against its plain PyTorch version on the
    card: ``dot_seen`` bit for bit at the bigset serve path's shape and a
-   stress shape; ``flash_attention`` and ``decode_attention`` in bf16 and
-   fp32 at the model serve path's shapes and a stress shape (head dim 256,
-   MHA, ragged lengths), within the CPU tests' tolerances.  It times the
-   wrapper and the device (a CUDA graph of launches) with CUDA events,
-   the plain version, and, beside each attention kernel, PyTorch's
-   ``scaled_dot_product_attention`` on the same inputs and mask (a
-   yardstick the port never calls); ``mamba_scan`` in fp32, ``y`` and the
+   stress shape; ``flash_attention`` (bf16 on its tensor-core route, fp32
+   on its SIMT route) and ``decode_attention`` (split-KV) in bf16 and fp32
+   at the model serve path's shapes (global and local layers: a window of
+   1,024 in prefill, a ring of 1,024 slots in decode) and a stress shape
+   (head dim 256, MHA, ragged lengths), within the CPU tests' tolerances.
+   It times the wrapper and the device (a CUDA graph of launches) with
+   CUDA events, the plain version, and, beside each attention kernel,
+   PyTorch's ``scaled_dot_product_attention`` on the same inputs and mask
+   (a yardstick the port never calls); ``mamba_scan`` in fp32, ``y`` and the
    final state, at the SSM prefill's shape (T = 1,536, D = 8,192, N = 16),
    a stress shape (B = 4, ragged T = 777) and N = 8, D = 64; the clock
    lattice's merge (``join``, ``subtract``, ``intersect``) and
@@ -49,7 +53,9 @@ Phases, each printed as it runs; any failure exits non-zero:
    (``max_batch=4, max_len=2048``), 6 seeded requests (four prompts of
    4–16 tokens, one of 1,280 and one of 1,536), 16 new tokens each; the
    attention counts are zeroed just before and read just after, and every
-   dispatch must have launched the CUDA kernels;
+   dispatch must have launched the CUDA kernels: every prefill on the
+   flash kernel's tensor-core route, every decode step on the split-KV
+   kernels;
 8. model parity — the smoke ``gemma3-27b`` (fp32) served on ``cpu`` (the
    plain versions) and on ``cuda`` (the kernels) gives identical greedy
    token streams and logits within 1e-4; the smoke ``pixtral-12b`` (fp32)
@@ -70,6 +76,7 @@ neither ``jax`` nor the JAX package ``repro``.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -121,6 +128,67 @@ def phase_device(torch):
     return card
 
 
+# The attention kernels of the serve path's routes whose registers, shared
+# memory and spills the build phase reports.
+PTXAS_KERNELS = ("flash_attention_kernel_tc", "decode_attention_kernel_split",
+                 "decode_attention_kernel_combine")
+_PTXAS_TYPES = {"13__nv_bfloat16": "bf16", "f": "f32"}
+
+
+def _kernel_of(mangled: str):
+    """``name<args>`` of a mangled entry of PTXAS_KERNELS, else None."""
+    for name in sorted(PTXAS_KERNELS, key=len, reverse=True):
+        at = mangled.find(name)
+        if at >= 0:
+            rest = mangled[at + len(name):]
+            m = re.match(r"I((?:Li\d+E|13__nv_bfloat16|f)+)E", rest)
+            args = re.findall(r"Li(\d+)E|(13__nv_bfloat16|f)",
+                              m.group(1)) if m else []
+            return name + "<" + ",".join(
+                n or _PTXAS_TYPES[t] for n, t in args) + ">"
+    return None
+
+
+def ptxas_report(source):
+    """``nvcc -Xptxas -v`` on ``source`` (a cubin into the build directory):
+    registers, static shared memory, stack and spills of each entry of
+    PTXAS_KERNELS."""
+    from repro_torch.kernels import build
+
+    flags = [f for f in build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    out = build.build_dir() / f"{Path(source).stem}.ptxas.cubin"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run(
+        [build.find_nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o", str(out),
+         str(source)], capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"nvcc -Xptxas -v {Path(source).name} "
+          f"failed:\n{proc.stdout}{proc.stderr}")
+    reports, cur = [], None
+    for line in (proc.stdout + proc.stderr).splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = _kernel_of(m.group(1))
+            cur = dict(kernel=name) if name else None
+            if cur:
+                reports.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur.update(registers=int(m.group(1)),
+                       smem_bytes=int(smem.group(1)) if smem else 0)
+    return reports
+
+
 def phase_build():
     from repro_torch.kernels import build
     from repro_torch.kernels.clock_ops import kernel as clock_kernel
@@ -132,14 +200,20 @@ def phase_build():
     modules = [dot_seen_kernel, flash_kernel, decode_kernel, mamba_kernel,
                clock_kernel]
     sources = [m.SOURCE for m in modules]
+    reported = [flash_kernel.SOURCE, decode_kernel.SOURCE]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sources)) as pool:
+    with ThreadPoolExecutor(len(sources) + len(reported)) as pool:
+        reports = pool.map(ptxas_report, reported)
         list(pool.map(build.load, sources))
+        reports = [r for rep in reports for r in rep]
     for m in modules:
         m.library()
     dt = time.perf_counter() - t0
     say(f"[build] {len(sources)} CUDA source(s) built for sm_90a in "
         f"{dt:.2f}s -> {build.build_dir()}")
+    check({r["kernel"].split("<")[0] for r in reports} == set(PTXAS_KERNELS),
+          f"ptxas reported {[r['kernel'] for r in reports]}")
+    say(f"[build] ptxas -v (static shared memory only): {json.dumps(reports)}")
 
 
 def _canonical_runs(rng, n_actors, n_runs, hi, fill, np):
@@ -303,8 +377,8 @@ def phase_kernels(torch, np):
 # The model serve path's shapes (gemma3-27b: 32 query heads over 16 KV
 # heads, head dim 128): a prefill of 1,536 tokens in a global layer and in
 # a local one (window 1,024), and a decode step of 4 rows of a 2,048-slot
-# cache with ragged lengths.  The stress shapes take head dim 256, MHA and
-# ragged lengths.
+# cache with ragged lengths and of a local layer's 1,024-slot ring.  The
+# stress shapes take head dim 256, MHA and ragged lengths.
 FLASH_SHAPES = {
     "path": dict(B=1, Hq=32, Hkv=16, T=1536, S=1536, D=128, window=None),
     "path-local": dict(B=1, Hq=32, Hkv=16, T=1536, S=1536, D=128,
@@ -314,6 +388,9 @@ FLASH_SHAPES = {
 DECODE_SHAPES = {
     "path": dict(B=4, Hq=32, Hkv=16, S=2048, D=128, window=None,
                  lens=[1537, 1281, 9, 700]),
+    # a local layer's ring of 1,024 slots, the same rows' lengths clamped
+    "path-local": dict(B=4, Hq=32, Hkv=16, S=1024, D=128, window=None,
+                       lens=[1024, 1024, 9, 700]),
     "stress": dict(B=3, Hq=8, Hkv=8, S=4096, D=256, window=1000,
                    lens=[1, 2500, 4096]),
 }
@@ -361,9 +438,11 @@ def phase_attention_kernels(torch):
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_cuda,
                                                       decode_attention_ref)
-    from repro_torch.kernels.flash_attention import (attention_ref,
+    from repro_torch.kernels.flash_attention import (ROUTE_LAUNCHES,
+                                                     attention_ref,
                                                      flash_attention,
-                                                     flash_attention_cuda)
+                                                     flash_attention_cuda,
+                                                     flash_route)
 
     results = {}
     gen = torch.Generator(device="cuda")
@@ -378,8 +457,12 @@ def phase_attention_kernels(torch):
             v = torch.randn(k.shape, generator=gen, device="cuda", dtype=dtype)
             w = s["window"]
             scale = s["D"] ** -0.5
+            route = flash_route(dtype, s["D"])
+            before = ROUTE_LAUNCHES[route]
             got = flash_attention(q, k, v, causal=True, window=w)
             torch.cuda.synchronize()
+            check(ROUTE_LAUNCHES[route] == before + 1,
+                  f"flash_attention {shape} {dname}: not on the {route} route")
             want = attention_ref(q, k, v, causal=True, window=w)
             err = float((got.float() - want.float()).abs().max())
             tol = ATTN_TOL["flash_attention"][dname]
@@ -391,8 +474,9 @@ def phase_attention_kernels(torch):
             bound_ms, bound_by = _bound(nbytes, ops, dname)
             res = dict(shape=f"B={s['B']},Hq={s['Hq']},Hkv={s['Hkv']},"
                        f"T={s['T']},S={s['S']},D={s['D']},window={w}",
-                       dtype=dname, max_abs_err=err, bound_ms=bound_ms,
-                       bound_by=bound_by, ops=ops, bytes=nbytes)
+                       dtype=dname, route=route, max_abs_err=err,
+                       bound_ms=bound_ms, bound_by=bound_by, ops=ops,
+                       bytes=nbytes)
             if dtype == torch.bfloat16:
                 iters = 10
                 res["ms"] = time_ms(torch, lambda: flash_attention(
@@ -1008,15 +1092,17 @@ def _leaves(tree):
         yield tree
 
 
-def serve_full_model(torch, np, arch: str, ledgers):
+def serve_full_model(torch, np, arch: str, ledgers, routes=None):
     """Serve the six prompts on the full ``arch`` in bf16 with random
     weights through ``ServeEngine``, with ``ledgers`` (name -> the kernel
-    wrappers' ``DISPATCHES``) zeroed just before and read just after.
+    wrappers' ``DISPATCHES``) and ``routes`` (a wrapper's launches by
+    route) zeroed just before and read just after.
 
     Checks that every request is served in full, every token is in the
     vocabulary, every logit is finite and every dispatch launched the CUDA
     kernel; prints the path's metrics and a profile, then frees the model
-    and the engine.  Returns (config, requests, decode steps, counts)."""
+    and the engine.  Returns (config, requests, decode steps, counts,
+    launches by route)."""
     import gc
 
     from repro_torch.configs import get_config
@@ -1043,8 +1129,11 @@ def serve_full_model(torch, np, arch: str, ledgers):
     reqs = [eng.submit(p, max_new_tokens=MODEL_NEW)
             for p in model_prompts(np, cfg.vocab_size)]
 
+    routes = {} if routes is None else routes
     for ledger in ledgers.values():
         ledger.reset()
+    for route in routes:
+        routes[route] = 0
     t0 = time.perf_counter()
     decode_tokens = 0
     while eng.queue or any(s is not None for s in eng.slots):
@@ -1052,6 +1141,7 @@ def serve_full_model(torch, np, arch: str, ledgers):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {name: ledger.snapshot() for name, ledger in ledgers.items()}
+    route_counts = dict(routes)
 
     check(all(r.done and len(r.out_tokens) == MODEL_NEW for r in reqs),
           f"{arch}: a request was not served in full")
@@ -1073,7 +1163,8 @@ def serve_full_model(torch, np, arch: str, ledgers):
         # a decode step reads every weight once
         weight_read_floor_ms=weight_bytes / PEAK_BYTES_PER_S * 1e3,
         n_params=n_params, weight_gb=weight_bytes / 1e9, peak_gb=peak / 1e9,
-        **{name: vars(c) for name, c in counts.items()})
+        **{name: vars(c) for name, c in counts.items()},
+        **({"routes": route_counts} if route_counts else {}))
     say(f"[model {arch}] served: {json.dumps(stats)}")
     for r in reqs:
         say(f"[model {arch}]   req{r.rid} ({len(r.prompt)} prompt tokens): "
@@ -1085,17 +1176,26 @@ def serve_full_model(torch, np, arch: str, ledgers):
     torch.cuda.empty_cache()
     say(f"[model {arch}] freed: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
         f"still allocated")
-    return cfg, n_reqs, steps, counts
+    return cfg, n_reqs, steps, counts, route_counts
 
 
 def phase_model(torch, np):
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
 
-    cfg, n_reqs, steps, counts = serve_full_model(
+    cfg, n_reqs, steps, counts, routes = serve_full_model(
         torch, np, MODEL_ARCH, {"flash": fa.DISPATCHES,
-                                "decode": dec.DISPATCHES})
+                                "decode": dec.DISPATCHES},
+        routes=fa.ROUTE_LAUNCHES)
     flash, decode = counts["flash"], counts["decode"]
+    # bf16 at head dim 128: every prefill on the tensor-core route; decode
+    # has the split-KV kernels alone, so a launch of its kernel is one
+    check(routes == {"tc": flash.launches, "simt": 0},
+          f"flash_attention launches by route {routes}: every bf16 "
+          f"{MODEL_ARCH} prefill must take the tensor-core route")
+    check(flash.kernel_launches == flash.launches
+          and decode.kernel_launches == decode.launches,
+          "an attention dispatch missed its CUDA kernel")
     check(flash.launches == cfg.n_layers * n_reqs,
           f"flash_attention dispatches {flash.launches} != "
           f"{cfg.n_layers} x {n_reqs} prompts")
@@ -1108,7 +1208,7 @@ def phase_model(torch, np):
 def phase_ssm_model(torch, np):
     from repro_torch.kernels import mamba_scan as ms
 
-    cfg, n_reqs, _, counts = serve_full_model(
+    cfg, n_reqs, _, counts, _ = serve_full_model(
         torch, np, SSM_ARCH, {"mamba_scan": ms.DISPATCHES})
     scans = counts["mamba_scan"]
     check(scans.launches == cfg.n_layers * n_reqs,

@@ -1,13 +1,15 @@
 """Public decode-attention wrapper, dispatching on the device.
 
 A CPU tensor runs the plain version (:mod:`.ref`); a CUDA tensor launches
-the CUDA kernel (:mod:`.kernel`) and raises if the build or the launch
-fails — there is no fallback.  ``cache_len`` stays on the device: the
-kernel reads it there, so a decode step needs no host sync.
+the split-KV CUDA kernels (:mod:`.kernel`: one split pass and one combine
+pass, in fp32 and bf16 alike) and raises if the build or the launch fails
+— there is no fallback.  ``cache_len`` stays on the device: the kernels
+read it there, so a decode step needs no host sync and can be captured in
+a CUDA graph.
 
 Every call is tallied in :data:`DISPATCHES` (rows = query rows,
 ``B * Hq``); ``kernel_launches`` counts the calls that launched the CUDA
-kernel.
+kernels.
 """
 from __future__ import annotations
 

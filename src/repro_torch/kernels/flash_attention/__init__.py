@@ -1,6 +1,6 @@
-from .ops import DISPATCHES, flash_attention
-from .kernel import flash_attention_cuda
+from .ops import DISPATCHES, ROUTE_LAUNCHES, flash_attention
+from .kernel import flash_attention_cuda, flash_route
 from .ref import attention_ref
 
-__all__ = ["DISPATCHES", "attention_ref", "flash_attention",
-           "flash_attention_cuda"]
+__all__ = ["DISPATCHES", "ROUTE_LAUNCHES", "attention_ref", "flash_attention",
+           "flash_attention_cuda", "flash_route"]

@@ -11,30 +11,52 @@
 // when a window is given, and j < S.  G = Hq / Hkv (GQA: q head h reads kv
 // head h / G, as jnp.repeat along heads).  A row that sees no key gives 0.
 //
-// Design.  The TPU kernel runs a sequential grid over KV blocks and carries
-// the accumulator in VMEM from one grid step to the next.  Blocks of a GPU
-// grid run in no order, so here one block owns a tile of BQ = 64 query rows
-// of one (batch, q head) and loops over the KV tiles that tile can reach
-// (the causal bound and the window bound), skipping the rest.  A tile of K
-// and V (BK rows) is staged in shared memory as fp32 and shared by the 64
-// rows.  Four threads own one query row: they compute its scores for
-// BK / 4 keys each, take the row max and sum with two shuffles, and each
-// keeps a quarter of the row's fp32 accumulator in registers (d = lane4 +
-// 4 i).  The running max m and sum l live in registers, replicated over the
-// four threads, so the online softmax needs no shared state.  Ragged T and
-// S are masked in the kernel (the Pallas kernel required T % block_q == 0).
-// Shared-memory rows are padded to D + 1 floats so the strided reads hit
-// distinct banks.
-//
 // Bound.  At the serve path's prefill (B = 1, Hq = 32, Hkv = 16, T = S =
 // 1536, D = 128, bf16) a layer does 4 * Hq * D * (visible pairs) flops:
-// 19.3 GFLOP causal, 17.2 GFLOP with the 1024 window, which the tensor
-// cores could do in about 0.02 ms; its bytes (q, k, v, o: 37.7 MB) take
-// 0.011 ms at 3.35 TB/s.  So it is bound by operations.  This kernel does
-// its products on the fp32 CUDA cores (67 TFLOP/s at most) from shared
-// memory, so it cannot come near that bound: wgmma tiles fed by TMA are the
-// work of a later change.
+// 19.3 GFLOP causal, 17.2 GFLOP with the 1024 window, which the bf16
+// tensor cores (989 TFLOP/s) could do in about 0.02 ms; its bytes (q, k, v,
+// o: 37.7 MB) take 0.011 ms at 3.35 TB/s.  So it is bound by operations,
+// and only the tensor cores come near that bound.
+//
+// Two routes, chosen by the host from the dtype and D before the launch
+// (kernel.py: flash_route):
+//
+// * The tensor-core route (bf16, D % 16 == 0), flash_attention_kernel_tc.
+//   The TPU kernel runs a sequential grid over KV blocks and carries the
+//   accumulator in VMEM between grid steps; here one block owns 64 * NWG
+//   query rows of one (batch, q head) and loops over the KV tiles those
+//   rows can reach, skipping the rest (past the causal diagonal, before the
+//   window's edge); only the diagonal, edge and ragged tiles are masked.
+//   One producer warp keeps a ring of NST stages of K and V tiles (64 keys
+//   x D) full with TMA loads, each stage with a "full" and an "empty"
+//   mbarrier, and loads Q once.  TMA writes every tile in 128-byte
+//   swizzled rows of 64 columns, the layout wgmma's shared-memory
+//   descriptors read; rows past T or S and columns past D arrive as zeros,
+//   which also pads any D % 16 == 0 up to the instantiated width DP (64,
+//   128 or 256).  Each consumer warpgroup owns 64 rows: S = Q K^T by
+//   wgmma m64n64k16 (both operands in shared memory, fp32 accumulators),
+//   the online softmax on the accumulator fragments in registers (exp2
+//   with scale * log2 e folded in, row max and sum over the four lanes of
+//   a quad), then P, rounded to bf16 in registers, is the register A
+//   operand of wgmma m64n64k16 against V read through the transposed-B
+//   descriptor; O stays in fp32 registers.  Blocks run longest first (the
+//   last query tile first), which balances the causal triangle over the
+//   132 SMs.
+//
+// * The SIMT route (fp32, and bf16 with D % 16 != 0),
+//   flash_attention_kernel: one block per 64-query tile on the fp32 CUDA
+//   cores.  It is the exact route: fp32 on the tensor cores would be TF32.
+//   A tile of K and V (BK rows) is staged in shared memory as fp32 and
+//   shared by the 64 rows.  Four threads own one query row: they compute
+//   its scores for BK / 4 keys each, take the row max and sum with two
+//   shuffles, and each keeps a quarter of the row's fp32 accumulator in
+//   registers (d = lane4 + 4 i).  The running max m and sum l live in
+//   registers, replicated over the four threads, so the online softmax
+//   needs no shared state.  Shared-memory rows are padded to D + 1 floats
+//   so the strided reads hit distinct banks.  It does its products on the
+//   fp32 CUDA cores (67 TFLOP/s at most).
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -247,12 +269,461 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
                             causal, window, stream);
 }
 
+
+// ---------------------------------------------------------------------------
+// The tensor-core route: bf16, D % 16 == 0, D <= 256.
+namespace tc {
+
+constexpr int kBK = 64;        // keys per KV tile
+constexpr int kColBlock = 64;  // bf16 columns per 128-byte swizzled row
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers and TMA
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
+}
+// One box of a 3-D tensor map into shared memory; completes on `bar`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---- wgmma
+// Shared-memory matrix descriptor of a tile TMA wrote with the 128-byte
+// swizzle: rows of 64 bf16 (128 bytes), 8-row groups 1,024 bytes apart
+// (the stride byte offset), `lbo` bytes between 64-column blocks (read
+// only for the transposed operand).  The tile base is 1,024-byte aligned;
+// a k16 step inside a row adds 32 bytes to the start address.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>(1024 >> 4) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit_and_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous product.
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define WG_ACC32(d)                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),             \
+  "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),         \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),         \
+  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),         \
+  "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),         \
+  "+f"(d[31])
+#define WG_REGS32                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+
+// d[64 x 64] (+)= A[64 x 16] . B[16 x 64], both operands K-major in shared
+// memory (A = Q rows, B = K rows); scale_d == 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC32(d)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+// d[64 x 64] += A[64 x 16] . B[16 x 64], A from registers (P), B from
+// shared memory stored N-contiguous (V rows: the transposed operand).
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Shared memory of one block: Q [DP/64][BQ][64], then NST stages of K and
+// of V, each [DP/64][64][64], all bf16 in 128-byte swizzled rows; then the
+// barriers.
+template <int DP, int NWG, int NST>
+struct Smem {
+  static constexpr int kBQ = 64 * NWG;
+  static constexpr int kCB = DP / kColBlock;
+  static constexpr int kQElems = kBQ * DP;
+  static constexpr int kTileElems = kBK * DP;
+  static constexpr size_t kBytes =
+      2 * static_cast<size_t>(kQElems + 2 * NST * kTileElems) +
+      8 * (1 + 2 * NST) + 1024;  // + alignment slack
+};
+
+template <int DP, int NWG, int NST>
+__global__ void __launch_bounds__(128 * NWG + 32, 1)
+flash_attention_kernel_tc(__grid_constant__ const CUtensorMap map_q,
+                          __grid_constant__ const CUtensorMap map_k,
+                          __grid_constant__ const CUtensorMap map_v,
+                          __nv_bfloat16* __restrict__ o, int Hq, int Hkv,
+                          int T_len, int S, int D, float scale_log2,
+                          int causal, int window) {
+  using L = Smem<DP, NWG, NST>;
+  constexpr int kBQ = L::kBQ;
+  constexpr int kCB = L::kCB;
+  extern __shared__ uint8_t smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  __nv_bfloat16* k_s = q_s + L::kQElems;
+  __nv_bfloat16* v_s = k_s + NST * L::kTileElems;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + NST * L::kTileElems);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + NST;
+
+  // longest tiles first: the last query tile reaches the most keys
+  const int bh = blockIdx.x;
+  const int q_tile = gridDim.y - 1 - blockIdx.y;
+  const int h = bh % Hq;
+  const int b = bh / Hq;
+  const int bkv = b * Hkv + h / (Hq / Hkv);
+  const int q0 = q_tile * kBQ;
+  const int off = S - T_len;
+
+  // KV tiles the block's rows can reach
+  const int rows = min(kBQ, T_len - q0);
+  const int k_hi = causal ? max(0, min(S, q0 + rows + off)) : S;
+  const int k_lo = window >= 0 ? max(0, q0 + off - window + 1) : 0;
+  const int kt_begin = k_lo / kBK;
+  const int kt_end = k_hi > k_lo ? (k_hi + kBK - 1) / kBK : kt_begin;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * NWG);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * NWG) {
+    // ---- producer: one thread keeps the ring of K / V tiles full
+    if (lane == 0) {
+      mbar_expect_tx(q_full, 2 * L::kQElems);
+      for (int c = 0; c < kCB; ++c)
+        tma_load_3d(q_s + c * kBQ * kColBlock, &map_q, q_full, c * kColBlock,
+                    q0, bh);
+      for (int kt = kt_begin, it = 0; kt < kt_end; ++kt, ++it) {
+        const int st = it % NST;
+        if (it >= NST) mbar_wait(&empty[st], ((it / NST) & 1) ^ 1);
+        mbar_expect_tx(&full[st], 2 * 2 * L::kTileElems);
+        __nv_bfloat16* ks = k_s + st * L::kTileElems;
+        __nv_bfloat16* vs = v_s + st * L::kTileElems;
+        for (int c = 0; c < kCB; ++c) {
+          tma_load_3d(ks + c * kBK * kColBlock, &map_k, &full[st],
+                      c * kColBlock, kt * kBK, bkv);
+          tma_load_3d(vs + c * kBK * kColBlock, &map_v, &full[st],
+                      c * kColBlock, kt * kBK, bkv);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns query rows [q0 + 64 wg, + 64)
+  const int wg = warp / 4;
+  const int g = lane / 4;   // row within the warp's 8-row half
+  const int tq = lane % 4;  // column pair within an 8-column block
+  const int wrow0 = q0 + 64 * wg;                // first row of the warpgroup
+  const int r0 = wrow0 + 16 * (warp % 4) + g;    // this thread's two rows
+  const int r1 = r0 + 8;
+  const int qp0 = r0 + off, qp1 = r1 + off;      // their context positions
+  const bool wg_live = wrow0 < T_len;
+  const int wq_first = wrow0 + off;
+  const int wq_last = min(wrow0 + 63, T_len - 1) + off;
+  const int wg_hi = causal ? min(S, wq_last + 1) : S;
+  const int wg_lo = window >= 0 ? max(0, wq_first - window + 1) : 0;
+
+  float acc[kCB][32];
+#pragma unroll
+  for (int c = 0; c < kCB; ++c) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+  }
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // running max (raw scores)
+  float l0 = 0.f, l1 = 0.f;                      // this thread's partial sums
+
+  mbar_wait(q_full, 0);
+  const __nv_bfloat16* q_wg = q_s + 64 * wg * kColBlock;
+
+  for (int kt = kt_begin, it = 0; kt < kt_end; ++kt, ++it) {
+    const int st = it % NST;
+    mbar_wait(&full[st], (it / NST) & 1);
+    const int kv0 = kt * kBK;
+    if (wg_live && kv0 < wg_hi && kv0 + kBK > wg_lo) {
+      const __nv_bfloat16* ks = k_s + st * L::kTileElems;
+      const __nv_bfloat16* vs = v_s + st * L::kTileElems;
+
+      // S = Q K^T on the tensor cores
+      float s[32];
+      fence_acc(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int c = kk / 4, w = (kk % 4) * 16;
+        wgmma_ss(s,
+                 sw128_desc(q_wg + c * kBQ * kColBlock + w, 16),
+                 sw128_desc(ks + c * kBK * kColBlock + w, 16), kk > 0);
+      }
+      wgmma_commit_and_wait();
+      fence_acc(s);
+
+      // masks only on the diagonal, window-edge and ragged tiles
+      const bool need_mask =
+          kv0 + kBK > S || (causal && kv0 + kBK - 1 > wq_first) ||
+          (window >= 0 && kv0 <= wq_last - window);
+      if (need_mask) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int key = kv0 + 8 * i + 2 * tq + (j & 1);
+            const int qp = (j & 2) ? qp1 : qp0;
+            bool ok = key < S;
+            if (causal) ok = ok && key <= qp;
+            if (window >= 0) ok = ok && key > qp - window;
+            if (!ok) s[4 * i + j] = -CUDART_INF_F;
+          }
+        }
+      }
+
+      // online softmax on the fragments: a quad of lanes holds a row
+      float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      // a row with nothing visible yet keeps m = -inf: its p and alpha are 0
+      const float mu0 = mn0 == -CUDART_INF_F ? 0.f : mn0 * scale_log2;
+      const float mu1 = mn1 == -CUDART_INF_F ? 0.f : mn1 * scale_log2;
+      const float alpha0 = exp2f(m0 * scale_log2 - mu0);
+      const float alpha1 = exp2f(m1 * scale_log2 - mu1);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        s[4 * i] = exp2f(fmaf(s[4 * i], scale_log2, -mu0));
+        s[4 * i + 1] = exp2f(fmaf(s[4 * i + 1], scale_log2, -mu0));
+        s[4 * i + 2] = exp2f(fmaf(s[4 * i + 2], scale_log2, -mu1));
+        s[4 * i + 3] = exp2f(fmaf(s[4 * i + 3], scale_log2, -mu1));
+        ps0 += s[4 * i] + s[4 * i + 1];
+        ps1 += s[4 * i + 2] + s[4 * i + 3];
+      }
+      l0 = l0 * alpha0 + ps0;
+      l1 = l1 * alpha1 + ps1;
+
+      // P as bf16 A fragments: the accumulator layout of S is the
+      // register-A layout of P, 16 keys per fragment
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+
+      // O = O * alpha + P V on the tensor cores
+#pragma unroll
+      for (int c = 0; c < kCB; ++c) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          acc[c][4 * i] *= alpha0;
+          acc[c][4 * i + 1] *= alpha0;
+          acc[c][4 * i + 2] *= alpha1;
+          acc[c][4 * i + 3] *= alpha1;
+        }
+        fence_acc(acc[c]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < kCB; ++c) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // 16 keys a step: two 8-row groups
+          wgmma_rs_tb(acc[c], pa[kk],
+                      sw128_desc(vs + (c * kBK + kk * 16) * kColBlock,
+                                 kBK * kColBlock * 2));
+      }
+      wgmma_commit_and_wait();
+#pragma unroll
+      for (int c = 0; c < kCB; ++c) fence_acc(acc[c]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  // normalise and store the rows inside T
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
+  const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  __nv_bfloat16* ob =
+      o + static_cast<int64_t>(bh) * T_len * D;
+#pragma unroll
+  for (int c = 0; c < kCB; ++c) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = c * kColBlock + 8 * i + 2 * tq;
+      if (col < D) {
+        if (r0 < T_len)
+          *reinterpret_cast<uint32_t*>(ob + static_cast<int64_t>(r0) * D +
+                                       col) =
+              pack_bf16(acc[c][4 * i] * inv0, acc[c][4 * i + 1] * inv0);
+        if (r1 < T_len)
+          *reinterpret_cast<uint32_t*>(ob + static_cast<int64_t>(r1) * D +
+                                       col) =
+              pack_bf16(acc[c][4 * i + 2] * inv1, acc[c][4 * i + 3] * inv1);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, taken from the driver through the runtime (the
+// library links no libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A [n_mats, rows, D] bf16 tensor as boxes of [1, box_rows, 64] with the
+// 128-byte swizzle; what lies past `rows` or D reads as zeros.
+bool encode_map(CUtensorMap* map, const void* base, int D, int rows,
+                int n_mats, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(n_mats)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(D) * 2,
+      static_cast<cuuint64_t>(D) * 2 * static_cast<cuuint64_t>(rows)};
+  const cuuint32_t box[3] = {kColBlock, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP, int NWG, int NST>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Hq, int Hkv, int T_len, int S, int D, float scale, int causal,
+           int window, cudaStream_t stream) {
+  using L = Smem<DP, NWG, NST>;
+  CUtensorMap map_q, map_k, map_v;
+  if (!encode_map(&map_q, q, D, T_len, B * Hq, L::kBQ) ||
+      !encode_map(&map_k, k, D, S, B * Hkv, kBK) ||
+      !encode_map(&map_v, v, D, S, B * Hkv, kBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_attention_kernel_tc<DP, NWG, NST>;
+  // above 48 KB only as opted-in dynamic shared memory; set once per
+  // instantiation, outside any CUDA graph capture that replays the launch
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(L::kBytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = true;
+  }
+  const dim3 grid(B * Hq, (T_len + L::kBQ - 1) / L::kBQ);
+  kernel<<<grid, 128 * NWG + 32, L::kBytes, stream>>>(
+      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), Hq, Hkv, T_len, S,
+      D, scale * 1.4426950408889634f, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// Launch on `stream`; returns a cudaError_t (0 on success).  q/o are
-// contiguous [B, Hq, T, D], k/v contiguous [B, Hkv, S, D], all of one dtype
-// (dtype 0: float32, 1: bfloat16), 16-byte aligned.  window < 0 means no
-// window.  The host checks Hq % Hkv == 0, D % 8 == 0 and 8 <= D <= 256.
+// Launch the SIMT route on `stream`; returns a cudaError_t (0 on success).
+// q/o are contiguous [B, Hq, T, D], k/v contiguous [B, Hkv, S, D], all of
+// one dtype (dtype 0: float32, 1: bfloat16), 16-byte aligned.  window < 0
+// means no window.  The host checks Hq % Hkv == 0, D % 8 == 0 and
+// 8 <= D <= 256.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Hq,
                                       int Hkv, int T_len, int S, int D,
@@ -269,4 +740,31 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return dispatch_d<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, T_len, S, D,
                                      scale, causal, window, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Launch the tensor-core route on `stream`: bf16 only, layouts as above,
+// D % 16 == 0 and D <= 256.  Returns a cudaError_t (0 on success).
+extern "C" int flash_attention_tc_launch(const void* q, const void* k,
+                                         const void* v, void* o, int B,
+                                         int Hq, int Hkv, int T_len, int S,
+                                         int D, float scale, int causal,
+                                         int window, void* stream) {
+  if (B <= 0 || Hq <= 0 || T_len <= 0 || D <= 0 || D > 256 || D % 16 != 0 ||
+      Hkv <= 0 || Hq % Hkv != 0 || S < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (S == 0)  // no key: every row gives 0
+    return static_cast<int>(cudaMemsetAsync(
+        o, 0, static_cast<size_t>(B) * Hq * T_len * D * 2, st));
+  if (D <= 64)
+    return tc::launch<64, 2, 3>(q, k, v, o, B, Hq, Hkv, T_len, S, D, scale,
+                                causal, window, st);
+  if (D <= 128)
+    return tc::launch<128, 2, 3>(q, k, v, o, B, Hq, Hkv, T_len, S, D, scale,
+                                 causal, window, st);
+  // one consumer warpgroup: with two, the block's 288 threads are given
+  // registers as if they were 384 (168 a thread), and 128 fp32 accumulators
+  // of O spill
+  return tc::launch<256, 1, 3>(q, k, v, o, B, Hq, Hkv, T_len, S, D, scale,
+                               causal, window, st);
 }

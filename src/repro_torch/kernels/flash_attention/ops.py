@@ -7,8 +7,9 @@ unless a caller passes ``use_pallas=True``; the port has no such switch:
 on the card, every call is the kernel.
 
 Every call is tallied in :data:`DISPATCHES` (rows = query rows,
-``B * Hq * T``); ``kernel_launches`` counts the calls that launched the
-CUDA kernel.
+``B * Hq * T``); ``kernel_launches`` counts the calls that launched a CUDA
+kernel, and :data:`ROUTE_LAUNCHES` splits them by route (``"tc"``,
+``"simt"``; see :func:`.kernel.flash_route`).
 """
 from __future__ import annotations
 
@@ -17,10 +18,11 @@ from typing import Optional
 import torch
 
 from ..ledger import DispatchStats
-from .kernel import DTYPE_CODES, flash_attention_cuda
+from .kernel import DTYPE_CODES, ROUTES, flash_attention_cuda, flash_route
 from .ref import attention_ref
 
 DISPATCHES = DispatchStats()
+ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 
 def check_attention_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
@@ -88,4 +90,5 @@ def flash_attention(
     out = flash_attention_cuda(q, k, v, causal=causal, window=window,
                                scale=float(scale))
     DISPATCHES.kernel_launches += 1
+    ROUTE_LAUNCHES[flash_route(q.dtype, q.shape[-1])] += 1
     return out

@@ -18,8 +18,13 @@ from repro.kernels.decode_attention import (decode_attention_pallas,
                                             decode_attention_ref as jax_decode_ref)
 from repro.kernels.flash_attention import (attention_ref as jax_attention_ref,
                                            flash_attention_pallas)
+from repro_torch.configs import ARCHS
 from repro_torch.kernels import decode_attention as dec_pkg
 from repro_torch.kernels import flash_attention as fa_pkg
+from repro_torch.kernels.decode_attention.kernel import (MIN_BLOCKS,
+                                                         plan_splits,
+                                                         scratch_shapes)
+from repro_torch.kernels.flash_attention.kernel import flash_route
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref)
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
@@ -192,6 +197,57 @@ def test_wrappers_check_their_arguments(bad):
 def test_kernel_modules_build_nothing_on_import():
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.flash_attention import kernel as fk
+    # planning a launch is host arithmetic: it builds nothing either
+    flash_route(torch.bfloat16, 128)
+    dk.scratch_shapes(4, 32, 16, 2048, 128)
     assert fk.library.cache_info().currsize == 0
     assert dk.library.cache_info().currsize == 0
     assert fk.SOURCE.is_file() and dk.SOURCE.is_file()
+
+
+# ------------------------------------------------------------------ routes
+ATTN_HEAD_DIMS = sorted({c.head_dim for c in ARCHS.values() if c.head_dim})
+
+
+@pytest.mark.parametrize("dtype,D,route", [
+    *((torch.bfloat16, D, "tc") for D in ATTN_HEAD_DIMS),
+    *((torch.float32, D, "simt") for D in ATTN_HEAD_DIMS),
+    (torch.bfloat16, 80, "tc"),      # padded in shared memory up to 128
+    (torch.bfloat16, 16, "tc"),      # the smoke models' head dim
+    (torch.float32, 16, "simt"),
+    (torch.bfloat16, 8, "simt"),     # not a multiple of wgmma's k16
+    (torch.bfloat16, 40, "simt"),
+])
+def test_flash_route_by_dtype_and_head_dim(dtype, D, route):
+    # every configuration's head dim takes the tensor cores in bf16, and the
+    # exact SIMT kernel in fp32 (on the tensor cores fp32 would be TF32)
+    assert ATTN_HEAD_DIMS == [64, 128, 256]
+    assert flash_route(dtype, D) == route
+
+
+@pytest.mark.parametrize("S,Hkv,B", [
+    (2048, 16, 4),   # the serve path's global layers: 8 splits of 256
+    (1024, 16, 4),   # its local layers' ring buffer
+    (4096, 8, 3), (2048, 1, 1), (100, 2, 1), (64, 1, 1), (1, 1, 1),
+    (65, 8, 1), (8192, 64, 16),
+])
+def test_decode_split_plan_tiles_the_cache(S, Hkv, B):
+    L, n = plan_splits(S, Hkv, B)
+    # splits of L slots, L a multiple of 64, tile [0, S) exactly once
+    assert L % 64 == 0 and n == -(-S // L)
+    bounds = [(i * L, min(S, (i + 1) * L)) for i in range(n)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == S
+    assert all(lo < hi for lo, hi in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    # enough blocks to fill the card twice where S allows, and no more
+    # splits than that needs
+    if L > 64:
+        assert n * Hkv * B >= MIN_BLOCKS
+        assert -(-S // (2 * L)) * Hkv * B < MIN_BLOCKS or 2 * L >= S
+    else:
+        assert n * Hkv * B >= MIN_BLOCKS or -(-S // 128) * Hkv * B < MIN_BLOCKS
+    if (S, Hkv, B) == (2048, 16, 4):
+        assert (L, n, n * Hkv * B) == (256, 8, 512)
+    Hq, D = 2 * Hkv, 128
+    assert scratch_shapes(B, Hq, Hkv, S, D) == {"ml": (B, Hq, n, 2),
+                                                "acc": (B, Hq, n, D)}

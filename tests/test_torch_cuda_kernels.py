@@ -1,5 +1,8 @@
 """The port's CUDA kernels (attention, selective scan, clock lattice)
-against their plain versions, on a card.
+against their plain versions, on a card: among them both routes of prefill
+attention (the bf16 tensor-core kernel and the SIMT kernel), the split-KV
+decode kernels at cache lengths on either side of a split edge, and both
+attention wrappers replayed in a CUDA graph.
 
 Marked ``gpu``: without a CUDA card every test here skips.  The file
 imports neither ``jax`` nor the JAX package, so it runs on a machine that
@@ -23,7 +26,10 @@ from repro_torch.kernels.clock_ops.kernel import staged as clock_staged
 
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref)
-from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.decode_attention.kernel import plan_splits
+from repro_torch.kernels.flash_attention import (ROUTE_LAUNCHES,
+                                                 attention_ref,
+                                                 flash_attention, flash_route)
 from repro_torch.kernels.mamba_scan import (DISPATCHES as SCANS, mamba_scan,
                                             mamba_scan_ref)
 
@@ -40,14 +46,20 @@ def cuda():
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("T,S,D,window", [(37, 200, 16, None),
                                           (256, 256, 128, 64),
-                                          (65, 65, 256, None)])
+                                          (65, 65, 256, None),
+                                          (50, 70, 40, 20)])
 def test_flash_kernel_matches_plain_on_the_card(cuda, dtype, tol, T, S, D,
                                                 window):
+    # fp32 and bf16 at D = 40 take the SIMT kernel, bf16 at D % 16 == 0
+    # the tensor-core one
     g = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn((2, 4, T, D), generator=g, device=cuda, dtype=dtype)
     k = torch.randn((2, 2, S, D), generator=g, device=cuda, dtype=dtype)
     v = torch.randn((2, 2, S, D), generator=g, device=cuda, dtype=dtype)
+    route = flash_route(dtype, D)
+    launched = ROUTE_LAUNCHES[route]
     got = flash_attention(q, k, v, causal=True, window=window)
+    assert ROUTE_LAUNCHES[route] == launched + 1
     want = attention_ref(q, k, v, causal=True, window=window)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
@@ -64,6 +76,104 @@ def test_decode_kernel_matches_plain_on_the_card(cuda, dtype, tol):
     got = decode_attention(q, k, v, lens)
     want = decode_attention_ref(q, k, v, lens)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _normal(g, shape, dtype, cuda):
+    return torch.randn(shape, generator=g, device=cuda, dtype=dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("window", [None, 1, 64, 1024])
+@pytest.mark.parametrize("T,S", [(1, 1), (4, 9), (63, 63), (65, 200),
+                                 (777, 777), (100, 60)])
+@pytest.mark.parametrize("D", [64, 128, 256, 80])
+def test_flash_tensor_core_route_matches_plain(cuda, D, T, S, window, G):
+    # bf16 with D % 16 == 0 takes the TMA + wgmma kernel (D = 80 padded in
+    # shared memory up to 128); T > S leaves rows that see no key, which
+    # give 0
+    g = torch.Generator(device=cuda).manual_seed(T * 7 + S)
+    q = _normal(g, (1, 2 * G, T, D), torch.bfloat16, cuda)
+    k = _normal(g, (1, 2, S, D), torch.bfloat16, cuda)
+    v = _normal(g, (1, 2, S, D), torch.bfloat16, cuda)
+    launched = ROUTE_LAUNCHES["tc"]
+    got = flash_attention(q, k, v, causal=True, window=window)
+    assert ROUTE_LAUNCHES["tc"] == launched + 1
+    want = attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    if T > S:
+        assert torch.all(got[:, :, :T - S] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, "split-edge"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 2, 8])
+def test_decode_split_route_matches_plain(cuda, G, D, dtype, tol, window):
+    B, Hkv, S = 6, 2, 640
+    L, n_splits = plan_splits(S, Hkv, B)
+    assert n_splits > 2
+    # empty, one slot, either side of a split edge, a full cache
+    lens = torch.tensor([0, 1, L - 1, L, L + 1, S], dtype=torch.int32,
+                        device=cuda)
+    # a window of 100 slots that crosses a split edge in the longer rows
+    w = 100 if window else None
+    g = torch.Generator(device=cuda).manual_seed(G * 1000 + D)
+    q = _normal(g, (B, G * Hkv, D), dtype, cuda)
+    k = _normal(g, (B, Hkv, S, D), dtype, cuda)
+    v = _normal(g, (B, Hkv, S, D), dtype, cuda)
+    got = decode_attention(q, k, v, lens, window=w)
+    want = decode_attention_ref(q, k, v, lens, window=w)
+    # a row with no valid slot gives 0 (the plain version averages them all)
+    assert torch.all(got[0] == 0)
+    torch.testing.assert_close(got[1:].float(), want[1:].float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.gpu
+def test_attention_wrappers_replay_in_a_cuda_graph(cuda):
+    # the TMA descriptors and the split plan are fixed at capture; new
+    # inputs and new cache lengths in the captured tensors give the plain
+    # result on replay, with no host sync inside the step
+    g = torch.Generator(device=cuda).manual_seed(3)
+    bf = torch.bfloat16
+    q = _normal(g, (1, 4, 300, 128), bf, cuda)
+    k = _normal(g, (1, 2, 300, 128), bf, cuda)
+    v = _normal(g, (1, 2, 300, 128), bf, cuda)
+    dq = _normal(g, (4, 8, 128), bf, cuda)
+    dk = _normal(g, (4, 4, 1024, 128), bf, cuda)
+    dv = _normal(g, (4, 4, 1024, 128), bf, cuda)
+    lens = torch.tensor([5, 300, 1024, 77], dtype=torch.int32, device=cuda)
+
+    def step():
+        return (flash_attention(q, k, v, causal=True, window=64),
+                decode_attention(dq, dk, dv, lens))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        flash_out, decode_out = step()
+    for new_lens in ([1, 2, 3, 4], [1024, 1023, 513, 256]):
+        for t in (q, k, v, dq, dk, dv):
+            t.copy_(_normal(g, t.shape, bf, cuda))
+        lens.copy_(torch.tensor(new_lens, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            flash_out.float(),
+            attention_ref(q, k, v, causal=True, window=64).float(),
+            atol=2e-2, rtol=2e-2)
+        torch.testing.assert_close(
+            decode_out.float(),
+            decode_attention_ref(dq, dk, dv, lens).float(),
+            atol=3e-2, rtol=3e-2)
 
 
 @pytest.mark.gpu
