@@ -2,10 +2,13 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/mamba_scan/kernel.py``
 (``mamba_scan_pallas`` → ``_mamba_kernel``).  The kernel itself is
-``csrc/mamba_scan.cu``: one thread per ``(b, d, n)`` state element walks
-T with its state in a register, the lanes of a channel reduce ``y_t`` with
-warp shuffles, and the final state is written out beside ``y`` (the
-Pallas kernel returned only ``y``); its source note gives the bound.
+``csrc/mamba_scan.cu``: a block of 64 channels walks T in chunks that
+``cp.async`` stages in shared memory three deep, each thread keeps 4
+states of a channel in registers, the exps (``ex2``) and ``Δ·x·B`` run
+ahead of the one FMA a step that is serial, and ``y`` is summed from
+per-thread partials once a chunk.  It reads fp32 or bf16 inputs, writes
+``y`` in their type and the final state in fp32 (the Pallas kernel
+returned only ``y``); its source note gives the bound.
 
 This module builds the source with ``nvcc`` at first use (see
 :mod:`repro_torch.kernels.build`) and launches it through :mod:`ctypes`
@@ -23,10 +26,13 @@ from typing import Tuple
 import torch
 
 from ..build import load
+from ..flash_attention.kernel import DTYPE_CODES
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mamba_scan.cu"
 
-MAX_STATE = 32  # N: the lanes of one channel stay inside a warp
+MAX_STATE = 32  # N: at most 8 groups of 4 states a channel
+MAX_BATCH = 65535  # B: the grid's second dimension
+CHUNK = 32  # steps a block stages at once (kChunk in the source)
 
 
 @functools.lru_cache(maxsize=None)
@@ -34,7 +40,7 @@ def library() -> ctypes.CDLL:
     """The built kernel library (compiled on first call, then cached)."""
     lib = load(SOURCE)
     fn = lib.mamba_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -42,8 +48,8 @@ def library() -> ctypes.CDLL:
 def mamba_scan_cuda(x: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
                     Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(y [B, T, D], h_T [B, D, N])`` in fp32 on the card; raises if the
-    launch is refused."""
+    """``(y [B, T, D]`` in ``x``'s type, ``h_T [B, D, N]`` in fp32) on the
+    card; raises if the launch is refused."""
     lib = library()
     Bsz, T, Dm = x.shape
     N = A.shape[1]
@@ -53,7 +59,7 @@ def mamba_scan_cuda(x: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     rc = lib.mamba_scan_launch(
         x.data_ptr(), delta.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), D.data_ptr(), y.data_ptr(), h_out.data_ptr(),
-        Bsz, T, Dm, N, stream)
+        Bsz, T, Dm, N, DTYPE_CODES[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"mamba_scan CUDA launch failed: cudaError {rc}")
     return y, h_out

@@ -7,8 +7,13 @@ only ``y`` and runs its Pallas kernel only when asked (``use_pallas``), so
 its prefill calls the jnp reference for the final state; here the scan
 returns ``(y, h_T)`` and, on the card, every call is the kernel.
 
+``x``, ``delta``, ``Bm`` and ``Cm`` share one type, fp32 or bf16 (the
+Pallas kernel's contract: it casts inside its body); ``A`` and ``D`` are
+fp32; ``y`` comes back in ``x``'s type and ``h_T`` in fp32.
+
 Every call is tallied in :data:`DISPATCHES` (rows = channels, ``B * D``);
-``kernel_launches`` counts the calls that launched the CUDA kernel.
+``kernel_launches`` counts the calls that launched the CUDA kernel, and
+:data:`DTYPE_LAUNCHES` those launches by the inputs' type.
 ``mamba_step`` (one decode token) has no kernel in either package: it is
 plain PyTorch on every device.
 """
@@ -19,28 +24,35 @@ from typing import Tuple
 import torch
 
 from ..ledger import DispatchStats
-from .kernel import MAX_STATE, mamba_scan_cuda
+from .kernel import MAX_BATCH, MAX_STATE, mamba_scan_cuda
 from .ref import mamba_scan_ref, mamba_step_ref
 
 DISPATCHES = DispatchStats()
+INPUT_DTYPES = (torch.float32, torch.bfloat16)
+DTYPE_LAUNCHES = {"float32": 0, "bfloat16": 0}
 
 
 def mamba_scan(
-    x: torch.Tensor,      # [B, T, D]  fp32
-    delta: torch.Tensor,  # [B, T, D]  fp32
+    x: torch.Tensor,      # [B, T, D]  fp32 or bf16
+    delta: torch.Tensor,  # [B, T, D]  x's type
     A: torch.Tensor,      # [D, N]     fp32
-    Bm: torch.Tensor,     # [B, T, N]  fp32
-    Cm: torch.Tensor,     # [B, T, N]  fp32
+    Bm: torch.Tensor,     # [B, T, N]  x's type
+    Cm: torch.Tensor,     # [B, T, N]  x's type
     D: torch.Tensor,      # [D]        fp32
-) -> Tuple[torch.Tensor, torch.Tensor]:  # y [B, T, D], h_T [B, D, N]
+) -> Tuple[torch.Tensor, torch.Tensor]:  # y [B, T, D], h_T [B, D, N] fp32
     """Selective scan from a zero state: ``y`` and the final state."""
     named = (("x", x), ("delta", delta), ("A", A), ("Bm", Bm), ("Cm", Cm),
              ("D", D))
     for nm, t in named:
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"mamba_scan: {nm} must be a torch.Tensor")
-        if t.dtype != torch.float32:
-            raise TypeError(f"mamba_scan: {nm} must be float32, got {t.dtype}")
+    if x.dtype not in INPUT_DTYPES:
+        raise TypeError(
+            f"mamba_scan: x must be float32 or bfloat16, got {x.dtype}")
+    for nm, t in named:
+        want = torch.float32 if nm in ("A", "D") else x.dtype
+        if t.dtype != want:
+            raise TypeError(f"mamba_scan: {nm} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"mamba_scan: {nm} must be contiguous")
         if t.device != x.device:
@@ -63,6 +75,9 @@ def mamba_scan(
         if N > MAX_STATE:
             raise ValueError(
                 f"mamba_scan: the CUDA kernel takes N <= {MAX_STATE}, got {N}")
+        if Bsz > MAX_BATCH:
+            raise ValueError(
+                f"mamba_scan: the CUDA kernel takes B <= {MAX_BATCH}, got {Bsz}")
     elif x.device.type != "cpu":
         raise ValueError(f"mamba_scan: no kernel for device {x.device}")
     DISPATCHES.launches += 1
@@ -71,6 +86,7 @@ def mamba_scan(
         return mamba_scan_ref(x, delta, A, Bm, Cm, D)
     out = mamba_scan_cuda(x, delta, A, Bm, Cm, D)
     DISPATCHES.kernel_launches += 1
+    DTYPE_LAUNCHES[str(x.dtype).removeprefix("torch.")] += 1
     return out
 
 

@@ -6,8 +6,10 @@ through :func:`~repro_torch.kernels.mamba_scan.mamba_scan` (the CUDA
 kernel on the card, its plain version on the CPU) and takes the final
 state from it; decode runs ``mamba_step`` and writes the conv window and
 the state into the engine's cache **in place** (JAX returns an updated
-copy).  Both are O(1) in sequence length.  The casts to fp32 around the
-scan and back to the model dtype sit where the JAX package puts them.
+copy).  Both are O(1) in sequence length.  The scan takes the model's
+type (fp32 or bf16) as it is, widens it to fp32 inside and writes ``y``
+back in it, which is what the JAX package's casts to fp32 around its scan
+and back compute; decode keeps those casts.
 
 Prefill keeps the last ``ssm_conv - 1`` inputs as conv history; a prompt
 shorter than that keeps only its T rows, and the engine's splice pads the
@@ -122,10 +124,10 @@ def mamba_forward(
         conv_out = _causal_conv(xi, conv_w, conv_b)
         u = F.silu(conv_out)
         delta, Bm, Cm, A = _ssm_inputs(p, cfg, u)
-        y, hT = mamba_scan(
-            u.float().contiguous(), delta.float().contiguous(), A,
-            Bm.float().contiguous(), Cm.float().contiguous(), p["Dp"])
-        y = y.to(dt)
+        # the scan reads the model's type and writes y in it (Bm and Cm are
+        # views of one projection: copied, T x N values each)
+        y, hT = mamba_scan(u, delta, A, Bm.contiguous(), Cm.contiguous(),
+                           p["Dp"])
         kw = cfg.ssm_conv
         # a copy: a view of xi would keep the whole [B, T, 2Di] xz alive
         new_cache = {"conv": xi[:, -(kw - 1):, :].to(dt).contiguous(),

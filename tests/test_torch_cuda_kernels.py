@@ -1,8 +1,10 @@
-"""The port's CUDA kernels (attention, selective scan, clock lattice)
-against their plain versions, on a card: among them both routes of prefill
-attention (the bf16 tensor-core kernel and the SIMT kernel), the split-KV
-decode kernels at cache lengths on either side of a split edge, and both
-attention wrappers replayed in a CUDA graph.
+"""The port's CUDA kernels (attention, selective scan, dot-seen, clock
+lattice) against their plain versions, on a card: among them both routes
+of prefill attention (the bf16 tensor-core kernel and the SIMT kernel),
+the split-KV decode kernels at cache lengths on either side of a split
+edge, the scan in fp32 and bf16 on either side of its chunk, ``dot_seen``
+on either side of a warp's stride and of its shared-memory staging, and
+every wrapper but the clock lattice's replayed in a CUDA graph.
 
 Marked ``gpu``: without a CUDA card every test here skips.  The file
 imports neither ``jax`` nor the JAX package, so it runs on a machine that
@@ -13,8 +15,10 @@ has only PyTorch:
 Tolerances are those of the CPU tests: 2e-5 in fp32; 2e-2 (prefill) and
 3e-2 (decode) in bf16, where the plain version rounds scores and
 probabilities to bf16 and the kernel keeps them in fp32; 2e-4 for the
-scan (fp32), whose kernel sums over the states in another order; exact
-equality for the clock lattice (integers).
+scan in fp32 and for its final state from bf16 inputs, whose kernel sums
+over the states in another order, and 2e-2 for its bf16 ``y``, rounded
+once from those sums; exact equality for ``dot_seen`` and the clock
+lattice (booleans, integers).
 """
 import numpy as np
 import pytest
@@ -30,8 +34,13 @@ from repro_torch.kernels.decode_attention.kernel import plan_splits
 from repro_torch.kernels.flash_attention import (ROUTE_LAUNCHES,
                                                  attention_ref,
                                                  flash_attention, flash_route)
-from repro_torch.kernels.mamba_scan import (DISPATCHES as SCANS, mamba_scan,
+from repro_torch.kernels.dot_seen import (DISPATCHES as DOTS, dot_seen,
+                                          dot_seen_ref)
+from repro_torch.kernels.dot_seen.kernel import plan as dot_seen_plan
+from repro_torch.kernels.mamba_scan import (DISPATCHES as SCANS,
+                                            DTYPE_LAUNCHES, mamba_scan,
                                             mamba_scan_ref)
+from repro_torch.kernels.mamba_scan.kernel import CHUNK
 
 
 @pytest.fixture
@@ -176,34 +185,150 @@ def test_attention_wrappers_replay_in_a_cuda_graph(cuda):
             atol=3e-2, rtol=3e-2)
 
 
+def _scan_inputs(g, B, T, D, N, dtype, cuda):
+    """x, delta, B and C in ``dtype``; A and D in fp32."""
+    x = _normal(g, (B, T, D), torch.float32, cuda)
+    delta = torch.nn.functional.softplus(
+        _normal(g, (B, T, D), torch.float32, cuda) - 4.6)
+    A = -torch.exp(_normal(g, (D, N), torch.float32, cuda))
+    Bm = _normal(g, (B, T, N), torch.float32, cuda)
+    Cm = _normal(g, (B, T, N), torch.float32, cuda)
+    return (x.to(dtype), delta.to(dtype), A, Bm.to(dtype), Cm.to(dtype),
+            _normal(g, (D,), torch.float32, cuda))
+
+
+# T on either side of the kernel's chunk and long; N from 1 to 32 (1 to 8
+# groups of 4 states, padded); B and D at the path's width and narrow
+# ones; D = 25 gives rows that are not a multiple of 16 bytes (50 in
+# bf16, 100 in fp32), staged by plain loads
+SCAN_CASES = (
+    [(1, T, 24, 16) for T in (1, 2, CHUNK - 1, CHUNK, CHUNK + 1, 777, 1536,
+                              4099)]
+    + [(4, CHUNK + 1, 24, N) for N in (1, 3, 8, 16, 32)]
+    + [(1, 777, 8192, 16), (4, 777, 8192, 16), (4, 777, 24, 16),
+       (2, 65, 8192, 32), (2, 40, 25, 3), (1, 1, 64, 16), (2, 37, 96, 8),
+       (3, 130, 40, 16), (2, 50, 24, 3)])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,T,D,N", [(1, 1, 64, 16), (2, 37, 96, 8),
-                                     (4, 777, 8192, 16), (3, 130, 40, 16),
-                                     (2, 50, 24, 3)])
-def test_mamba_scan_kernel_matches_plain_on_the_card(cuda, B, T, D, N):
-    g = torch.Generator(device=cuda).manual_seed(0)
-
-    def normal(*shape):
-        return torch.randn(shape, generator=g, device=cuda)
-
-    x = normal(B, T, D)
-    delta = torch.nn.functional.softplus(normal(B, T, D) - 4.6)
-    A = -torch.exp(normal(D, N))
-    args = (x, delta, A, normal(B, T, N), normal(B, T, N), normal(D))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,D,N", SCAN_CASES)
+def test_mamba_scan_kernel_matches_plain_on_the_card(cuda, B, T, D, N,
+                                                     dtype):
+    g = torch.Generator(device=cuda).manual_seed(B * 7919 + T * 31 + N)
+    args = _scan_inputs(g, B, T, D, N, dtype, cuda)
     launched = SCANS.kernel_launches
+    by_dtype = dict(DTYPE_LAUNCHES)
     y, hT = mamba_scan(*args)
     assert SCANS.kernel_launches == launched + 1
-    y_want, h_want = mamba_scan_ref(*args)
+    name = str(dtype).removeprefix("torch.")
+    assert DTYPE_LAUNCHES == dict(by_dtype, **{name: by_dtype[name] + 1})
+    assert y.dtype == dtype and hT.dtype == torch.float32
     assert hT.shape == (B, D, N)
-    torch.testing.assert_close(y, y_want, atol=2e-4, rtol=2e-4)
+    y_want, h_want = mamba_scan_ref(*args)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y, y_want, atol=tol, rtol=tol)
     torch.testing.assert_close(hT, h_want, atol=2e-4, rtol=2e-4)
+
+
+# --------------------------------------------------------------- dot_seen
+TOP = 2**31 - 1
+
+
+def _dot_seen_inputs(n_actors, n_runs, n_dots, seed):
+    """Unsorted rows with overlapping and duplicate runs and empty slots
+    (1, 0); dots with actors -1 .. A (outside [0, A) at both ends),
+    counters 0, 1 and 2^31 - 1, on the runs' edges and anywhere.  Actor
+    0's row is empty but for its last run, so the dots on it can hit only
+    in the last stride's last lane."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, 2**31 - 2**20, (n_actors, n_runs))
+    e = s + rng.integers(-2, 2**20, (n_actors, n_runs))
+    if n_runs > 3:
+        s[:, 3], e[:, 3] = s[:, 1], e[:, 1]                  # duplicate
+        s[:, 2], e[:, 2] = s[:, 1] + 5, e[:, 1] + 2**19      # overlap
+    empty = rng.random((n_actors, n_runs)) < 0.2
+    s[empty], e[empty] = 1, 0
+    s[1 % n_actors, 0], e[1 % n_actors, 0] = 1, TOP            # reach the top
+    s[0], e[0] = 1, 0
+    s[0, -1], e[0, -1] = 777, 779
+    actors = rng.integers(-1, n_actors + 1, n_dots)
+    pick = rng.integers(0, n_runs, n_dots)
+    row = np.clip(actors, 0, n_actors - 1)
+    edge = rng.integers(0, 6, n_dots)
+    base = np.where(edge < 3, s[row, pick], e[row, pick])
+    base = base + np.choose(edge, [-1, 0, 1, -1, 0, 1])
+    counters = np.where(rng.random(n_dots) < 0.6, base,
+                        rng.integers(0, TOP, n_dots, endpoint=True))
+    counters[:6] = [0, 1, TOP, 777, 778, 779]
+    actors[:6] = [0, 1, 1 % n_actors, 0, 0, 0]
+    counters = np.clip(counters, 0, TOP)
+    return [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+            for a in (s, np.minimum(e, TOP), actors, counters)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_actors", [3, 200])
+@pytest.mark.parametrize("n_runs", [1, 3, 12, 31, 32, 33, 2000, 4096])
+def test_dot_seen_kernel_matches_plain_bit_for_bit(cuda, n_runs, n_actors):
+    # rows shorter than a warp, of one, and longer; 3 actors of up to 2,000
+    # runs are staged in shared memory, wider or more rows are read from
+    # global memory; 1,037 dots fill no block
+    starts, ends, actors, counters = (
+        t.to(cuda) for t in _dot_seen_inputs(n_actors, n_runs, 1037,
+                                             n_runs + n_actors))
+    geometry = dot_seen_plan(n_actors, n_runs, 1037)
+    assert geometry.staged == (2 * n_actors * n_runs <= 12 * 1024)
+    launched = DOTS.kernel_launches
+    got = dot_seen(DenseClock(starts, ends), actors, counters)
+    assert DOTS.kernel_launches == launched + 1
+    want = dot_seen_ref(starts, ends, actors, counters)
+    assert got.dtype == torch.bool
+    assert torch.equal(got, want)
+    assert got[3:6].tolist() == [True] * 3  # actor 0's last run only
+    assert bool(want.any()) and not bool(want.all())
+
+
+@pytest.mark.gpu
+def test_scan_and_dot_seen_wrappers_replay_in_a_cuda_graph(cuda):
+    # the launch geometry is fixed at capture; new inputs in the captured
+    # tensors give the plain result on replay
+    g = torch.Generator(device=cuda).manual_seed(4)
+    scan_args = _scan_inputs(g, 1, 100, 96, 16, torch.bfloat16, cuda)
+    dots = [t.to(cuda) for t in _dot_seen_inputs(2, 2000, 1024, 1)]
+
+    def step():
+        return (mamba_scan(*scan_args),
+                dot_seen(DenseClock(dots[0], dots[1]), dots[2], dots[3]))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        (y, hT), seen = step()
+    for seed in (5, 6):
+        fresh = _scan_inputs(torch.Generator(device=cuda).manual_seed(seed),
+                             1, 100, 96, 16, torch.bfloat16, cuda)
+        for t, new in zip(scan_args, fresh):
+            t.copy_(new)
+        for t, new in zip(dots, _dot_seen_inputs(2, 2000, 1024, seed)):
+            t.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        y_want, h_want = mamba_scan_ref(*scan_args)
+        torch.testing.assert_close(y, y_want, atol=2e-2, rtol=2e-2)
+        torch.testing.assert_close(hT, h_want, atol=2e-4, rtol=2e-4)
+        assert torch.equal(seen, dot_seen_ref(*dots))
 
 
 # ------------------------------------------------------------ clock lattice
 CLOCK_MODES = (("join", "or", clock_ops.join_ref),
                ("subtract", "andnot", clock_ops.subtract_ref),
                ("intersect", "and", clock_ops.intersect_ref))
-TOP, LOW = 2**31 - 1, -2**31
+LOW = -2**31
 
 
 def _clock_rows(rng, n_actors, n_runs, hi):

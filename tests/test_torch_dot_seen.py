@@ -136,3 +136,38 @@ class TestTorchDotSeen:
         with pytest.raises(ValueError):  # no kernel for this device
             dot_seen(DenseClock(td.starts.to("meta"), td.ends.to("meta")),
                      a.to("meta"), c.to("meta"))
+
+
+# ------------------------------------------------ the CUDA kernel's geometry
+@pytest.mark.parametrize("n_actors,n_runs,n_dots", [
+    (1, 2000, 1024),      # the serve path: staged
+    (64, 4096, 1 << 20),  # the stress shape: rows read from global memory
+    (3, 1, 17), (5, 3, 300), (2, 12, 257), (7, 31, 1037), (1, 33, 8),
+    (200, 33, 1000), (4, 0, 5),
+])
+def test_kernel_plan_covers_every_dot_and_run_once(n_actors, n_runs,
+                                                   n_dots):
+    from repro_torch.kernels.dot_seen.kernel import (DOTS_PER_BLOCK,
+                                                     STAGE_INTS, THREADS,
+                                                     UNROLL, plan)
+    p = plan(n_actors, n_runs, n_dots)
+    assert DOTS_PER_BLOCK * 32 == THREADS
+    assert p.staged == (2 * n_actors * n_runs <= STAGE_INTS)
+    # dot of each (block, thread), as the kernel computes it
+    blk, tid = np.meshgrid(np.arange(p.blocks), np.arange(THREADS),
+                           indexing="ij")
+    dots = blk * DOTS_PER_BLOCK + tid // 32
+    lane = tid % 32
+    first = dots[lane == 0]
+    assert np.array_equal(np.sort(first[first < n_dots]), np.arange(n_dots))
+    # runs of one warp: r = base + u * 32 + lane, base in steps of U * 32
+    runs = [base + u * 32 + g
+            for base in range(0, n_runs, UNROLL * 32)
+            for u in range(UNROLL) for g in range(32)]
+    assert sorted(r for r in runs if r < n_runs) == list(range(n_runs))
+
+
+def test_kernel_module_builds_nothing_on_import():
+    from repro_torch.kernels.dot_seen import kernel as dk
+    assert dk.library.cache_info().currsize == 0
+    assert dk.SOURCE.is_file() and dk.SOURCE.suffix == ".cu"
