@@ -14,8 +14,8 @@ Phases, each printed as it runs; any failure exits non-zero:
    ``clock_ops``) from the checkout's sources with ``nvcc``, one process
    per source, started together, and beside them prints what
    ``nvcc -Xptxas -v`` reports (registers, shared memory, spills) for the
-   attention kernels' tensor-core and split-KV routes, the scan and
-   ``dot_seen``;
+   attention kernels' tensor-core and split-KV routes, the scan,
+   ``dot_seen`` and the clock merge and popcount;
 3. kernels — holds each kernel against its plain PyTorch version on the
    card: ``dot_seen`` bit for bit at the bigset serve path's shape and a
    stress shape, beside an empty launch's device time (the floor a launch
@@ -33,12 +33,14 @@ Phases, each printed as it runs; any failure exits non-zero:
    T = 777), N = 8 at D = 64 and a long prompt (T = 8,192), each timed
    beside its byte bound and the floor of its exps on the special-function
    units; the clock
-   lattice's merge (``join``, ``subtract``, ``intersect``) and
-   ``popcount`` bit for bit at the bigset path's tombstone shape (one actor
-   of 2,000 runs), at 512 actors of 128 and of 1,024 runs, at 4 actors of
-   8,192 runs (too wide for shared memory: the merge's global-memory
-   route) and at an edge case (counters at 2^31 - 1 and -2^31, unsorted,
-   overlapping and duplicated runs, popcounts that wrap);
+   lattice's merge (``join``, ``subtract``, ``intersect``: the kernel's
+   canonical rows against the plain version's, sorted) and ``popcount``
+   bit for bit at the bigset path's tombstone shape (one actor of 2,000
+   runs), at 512 actors of 128 and of 1,024 runs, at 4 actors of 8,192 runs
+   (too wide for shared memory: the merge's global-memory route) and at an
+   edge case (counters at 2^31 - 1 and -2^31, unsorted, overlapping and
+   duplicated runs, popcounts that wrap), with each op's wrapper and
+   device time at every shape;
 4. main path — the bigset serve flow on ``cuda`` through the port's
    public entry points (``BigsetCluster`` → ``BigsetService`` →
    ``BigsetClient``): 3 replicas, 100,000 eight-byte elements, 2,000
@@ -140,11 +142,12 @@ def phase_device(torch):
 
 
 # The kernels of the serve paths (the attention kernels' routes, the scan,
-# dot_seen) whose registers, shared memory and spills the build phase
-# reports.
+# dot_seen) and of the clock lattice whose registers, shared memory and
+# spills the build phase reports.
 PTXAS_KERNELS = ("flash_attention_kernel_tc", "decode_attention_kernel_split",
                  "decode_attention_kernel_combine", "mamba_scan_kernel",
-                 "dot_seen_kernel")
+                 "dot_seen_kernel", "clock_merge_kernel",
+                 "clock_popcount_kernel")
 _PTXAS_TYPES = {"13__nv_bfloat16": "bf16", "f": "f32"}
 
 
@@ -215,7 +218,8 @@ def phase_build():
                clock_kernel]
     sources = [m.SOURCE for m in modules]
     reported = [flash_kernel.SOURCE, decode_kernel.SOURCE,
-                mamba_kernel.SOURCE, dot_seen_kernel.SOURCE]
+                mamba_kernel.SOURCE, dot_seen_kernel.SOURCE,
+                clock_kernel.SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources) + len(reported)) as pool:
         reports = pool.map(ptxas_report, reported)
@@ -722,10 +726,11 @@ def plain_merge(torch, ref, sort_runs, a_s, a_e, b_s, b_e):
 
 def phase_clock_kernels(torch, np):
     """Both clock-lattice kernels, through the entry points, against their
-    plain versions on the card at every shape, bit for bit after the sort;
-    lattice identities and the drawn event counts check the answers.  Then
-    each shape's timings: the wrapper, the device (a CUDA graph of bare
-    launches), the plain version, the bound and the sweep's compare count."""
+    plain versions on the card at every shape, bit for bit (the merge's
+    canonical rows against the plain version's, sorted); lattice identities
+    and the drawn event counts check the answers.  Then each shape's
+    timings: the wrapper, the device (a CUDA graph of bare launches), the
+    plain version and the bound."""
     from repro_torch.core.vclock import DenseClock, sort_runs
     from repro_torch.kernels import clock_ops as co
     from repro_torch.kernels.clock_ops.kernel import staged
@@ -771,18 +776,17 @@ def phase_clock_kernels(torch, np):
 
         P = ra + rb
         # each of the four inputs read once and both outputs written once;
-        # the same function needs at least a sort of a row's P edges
-        # (P log2 P compares); the reference's sweep does ~6 P^2 a row
+        # sorted rows (every shape but edge) need a linear merge, one
+        # compare an edge, and the edge shape's a sort, P log2 P compares
         merge_bytes = 8 * A * (ra + rb) + 2 * A * P * 4
-        merge_ops = A * P * int(np.ceil(np.log2(P)))
+        merge_ops = A * P * (int(np.ceil(np.log2(P))) if shape == "edge"
+                             else 1)
         bound_ms, bound_by = _bound(merge_bytes, merge_ops, "int32")
         iters = CLOCK_ITERS[shape]
         plain_iters = 1 if shape in ("stress", "wide") else iters
         res = dict(shape=f"A={A},Ra={ra},Rb={rb}", route=route,
                    max_abs_err=err, bytes=merge_bytes, ops=merge_ops,
-                   bound_ms=bound_ms, bound_by=bound_by,
-                   sweep_compares=6 * A * P * P,
-                   sweep_compares_ms=6 * A * P * P / PEAK_OPS_PER_S * 1e3)
+                   bound_ms=bound_ms, bound_by=bound_by)
         for op, mode in CLOCK_OPS.items():
             fn = getattr(co, op)
             res[op] = dict(

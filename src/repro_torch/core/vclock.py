@@ -35,7 +35,10 @@ held against.  Differences from the JAX module, all deliberate:
 * an actor outside ``[0, A)`` reads as unseen (JAX clamps the gather index
   to the last row, torch would raise);
 * ``sort_runs`` sorts stably, as ``jnp.argsort`` does, so tied empty slots
-  keep their order;
+  keep their order, and keys empty slots past every valid run (int64, at
+  ``2**31``) where JAX keys them at ``2**31 - 1``: a valid run that starts
+  at ``2**31 - 1`` then lands among JAX's empties in slot order (ROADMAP
+  C9) and here stays sorted, so every row is canonical;
 * ``add_dots`` sorts on one int64 key ``(actor << 32) | (counter + 2**31)``
   where JAX lexsorts, and segment-reduces with ``scatter_reduce``; dots of
   actors outside the universe are dropped.
@@ -178,7 +181,8 @@ def _interval_merge(a_s, a_e, b_s, b_e, mode: str):
 def sort_runs(starts: torch.Tensor, ends: torch.Tensor):
     """Canonicalise run arrays: sort rows by start, empties ``(1, 0)`` last."""
     valid = starts <= ends
-    key = torch.where(valid, starts, torch.full_like(starts, _INT32_MAX))
+    key = torch.where(valid, starts.long(),
+                      torch.full_like(starts, _INT32_MAX + 1, dtype=torch.long))
     order = torch.argsort(key, dim=1, stable=True)
     s = torch.take_along_dim(starts, order, dim=1)
     e = torch.take_along_dim(ends, order, dim=1)

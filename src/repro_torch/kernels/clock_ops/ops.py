@@ -5,11 +5,13 @@ Join / subtract / intersect are boundary-sweep run merges over the dense
 CPU tensor runs the plain version (:mod:`.ref`); a CUDA tensor launches the
 CUDA kernel (:mod:`.kernel`) and raises if the build or the launch fails —
 there is no fallback, and no switch: the JAX package's ``use_pallas`` and
-``interpret`` have no counterpart.  Both routes return the merged but
-unsorted run arrays, and the wrapper canonicalises row order with
-:func:`~repro_torch.core.vclock.sort_runs` (sorted by start, empty
-``(1, 0)`` slots last), so the two agree bit for bit.  Subtract is
-origin-free: there is no precondition beyond a shared actor universe.
+``interpret`` have no counterpart.  Both routes return canonical rows
+(sorted maximal runs, empty ``(1, 0)`` slots last), which are a function
+of the two sets alone: the kernel writes them as they are; the plain
+version's unsorted slots become them after
+:func:`~repro_torch.core.vclock.sort_runs`.  The two agree bit for bit.
+Subtract is origin-free: there is no precondition beyond a shared actor
+universe.
 
 :data:`DISPATCHES` keeps two ledgers, ``DISPATCHES.merge`` (the three
 merges) and ``DISPATCHES.popcount``: each call adds one launch and its A
@@ -70,11 +72,12 @@ def _merged(mode: str, op: str, ref_fn, a: DenseClock,
     DISPATCHES.merge.launches += 1
     DISPATCHES.merge.rows += int(a.starts.shape[0])
     if device.type == "cpu":
-        s, e = ref_fn(a.starts, a.ends, b.starts, b.ends)
-    else:
-        s, e = clock_merge_cuda(mode, a.starts, a.ends, b.starts, b.ends)
-        DISPATCHES.merge.kernel_launches += 1
-    return DenseClock(*sort_runs(s, e))
+        return DenseClock(*sort_runs(*ref_fn(a.starts, a.ends,
+                                             b.starts, b.ends)))
+    out = DenseClock(*clock_merge_cuda(mode, a.starts, a.ends,
+                                       b.starts, b.ends))
+    DISPATCHES.merge.kernel_launches += 1
+    return out
 
 
 def join(a: DenseClock, b: DenseClock) -> DenseClock:

@@ -5,9 +5,11 @@ Each merge is the boundary-sweep run merge of
 arrays — union (join), difference (tombstone shrink, §4.3.3) and
 intersection (tombstone ∩ raw trim) — and popcount is
 :func:`repro_torch.core.vclock.popcount`.  Merge outputs are the *unsorted*
-``int32[A, Ra+Rb]`` run arrays; the ops wrapper canonicalises row order
-for both routes.  The wrapper runs these for tensors on the CPU, and the
-CUDA kernels are held against them on the card.
+``int32[A, Ra+Rb]`` run arrays; after
+:func:`~repro_torch.core.vclock.sort_runs` they are canonical (sorted
+maximal runs, empty ``(1, 0)`` slots last), which is what the CUDA merge
+writes directly.  The wrapper runs these for tensors on the CPU, and the
+CUDA kernels are held against them (merges after the sort) on the card.
 
 Candidates are computed in int64, where the JAX reference computes them in
 int32 and wraps at ``INT32_MIN`` (ROADMAP C8); for counters in

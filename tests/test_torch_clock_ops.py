@@ -8,9 +8,17 @@ tests hold them against the same plain versions there.  Results are
 integers, so every comparison is exact equality.
 
 For counters in ``[0, 2**31 - 1]`` the port equals the JAX package bit for
-bit.  At ``-2**31`` the JAX reference computes its candidate edges in
-int32 and wraps, dropping runs (ROADMAP C8); the port computes them in
-int64, so there it is held to the interval-set oracle alone.
+bit, but for one place: JAX's ``sort_runs`` keys empty slots at
+``2**31 - 1``, so a run that starts there can land among the empty slots
+(ROADMAP C9), where the port keeps every row canonical; there the port is
+held to JAX's rows sorted canonically.  At ``-2**31`` the JAX reference
+computes its candidate edges in int32 and wraps, dropping runs (ROADMAP
+C8); the port computes them in int64, so there it is held to the
+interval-set oracle alone.
+
+A merge's canonical row (sorted maximal runs, empty ``(1, 0)`` slots last)
+is a function of the two sets alone; the CUDA merge writes it directly,
+and (g) holds the plain version to that here.
 """
 import numpy as np
 import pytest
@@ -65,6 +73,14 @@ def _assert_same(port, jax_clock):
     js, je = _np(jax_clock)
     assert ps.dtype == np.int32 and pe.dtype == np.int32
     assert np.array_equal(ps, js) and np.array_equal(pe, je)
+
+
+def _assert_same_canonical(port, jax_clock):
+    """The port's rows equal JAX's, sorted canonically: JAX's own wherever
+    its rows are canonical, which is everywhere but C9."""
+    js, je = tvc.sort_runs(*(torch.from_numpy(np.array(x))
+                             for x in _np(jax_clock)))
+    _assert_same(port, DenseClock(js, je))
 
 
 def _arrays(rows, width):
@@ -281,8 +297,12 @@ def test_property_port_matches_jax_ref(a_rows, b_rows):
     ta, ja = _pair(*_arrays(a_rows, 5))
     tb, jb = _pair(*_arrays(b_rows, 5))
     for op in OPS:
-        _assert_same(getattr(co, op)(ta, tb),
-                     getattr(jops, op)(ja, jb, use_pallas=False))
+        got = getattr(co, op)(ta, tb)
+        _assert_canonical(got)
+        _assert_same_canonical(got, getattr(jops, op)(ja, jb,
+                                                      use_pallas=False))
+        assert _rows(got) == [_oracle(x, y, op)
+                              for x, y in zip(a_rows, b_rows)]
     assert np.array_equal(co.popcount(ta).numpy(),
                           np.asarray(jops.popcount(ja)))
 
@@ -331,3 +351,65 @@ def test_ledger_counts_launches_and_rows_on_the_cpu():
     assert vars(merge) == {"launches": 3, "rows": 15, "kernel_launches": 0}
     assert vars(pop) == {"launches": 2, "rows": 10, "kernel_launches": 0}
     assert co.DISPATCHES._fields == ("merge", "popcount")
+
+
+# ------------------------------------------------- (g) the canonical row
+def _messy_rows(rng, n_actors, n_runs):
+    """Unsorted, overlapping and duplicated runs with empty slots mid-row,
+    counters in [0, 2**31 - 1]: small ones that overlap, and some at the
+    top, runs that start at 2**31 - 1 among them."""
+    s = rng.integers(0, 60, (n_actors, n_runs))
+    e = s + rng.integers(-1, 12, (n_actors, n_runs))
+    top = rng.random((n_actors, n_runs)) < 0.2
+    s[top] = TOP - rng.integers(0, 4, int(top.sum()))
+    e[top] = np.minimum(s[top] + rng.integers(0, 3, int(top.sum())), TOP)
+    s[:, 3], e[:, 3] = s[:, 1], e[:, 1]              # a duplicate run
+    empty = rng.random((n_actors, n_runs)) < 0.25    # empties mid-row
+    empty[:, 1] = empty[:, 3] = False
+    s[empty], e[empty] = 1, 0
+    return s.astype(np.int32), e.astype(np.int32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("op,mode", [("join", "or"), ("subtract", "andnot"),
+                                     ("intersect", "and")])
+def test_sorted_plain_merge_is_the_canonical_row_of_the_sets(op, mode, seed):
+    # the fact the CUDA merge rests on: whatever slots the plain version
+    # fills, sorting them gives the sorted maximal runs of the live set,
+    # padded with (1, 0) to Ra + Rb slots
+    rng = np.random.default_rng(100 + seed)
+    n_actors, ra, rb = 8, 11, 7 + seed
+    a_s, a_e = _messy_rows(rng, n_actors, ra)
+    b_s, b_e = _messy_rows(rng, n_actors, rb)
+    ta, ja = _pair(a_s, a_e)
+    tb, jb = _pair(b_s, b_e)
+    ref = {"or": co.join_ref, "andnot": co.subtract_ref,
+           "and": co.intersect_ref}[mode]
+    got = DenseClock(*tvc.sort_runs(*ref(ta.starts, ta.ends, tb.starts,
+                                         tb.ends)))
+    want = [_oracle(list(zip(a_s[i].tolist(), a_e[i].tolist())),
+                    list(zip(b_s[i].tolist(), b_e[i].tolist())), op)
+            for i in range(n_actors)]
+    padded = _arrays(want, ra + rb)
+    assert np.array_equal(got.starts.numpy(), padded[0])
+    assert np.array_equal(got.ends.numpy(), padded[1])
+    # JAX's merge, sorted the same way, gives the same rows
+    js, je = jvc._interval_merge(ja.starts, ja.ends, jb.starts, jb.ends, mode)
+    jsorted = tvc.sort_runs(torch.from_numpy(np.array(js)),
+                            torch.from_numpy(np.array(je)))
+    assert all(torch.equal(g, w) for g, w in zip(got, jsorted))
+    # and the wrapper returns exactly these rows
+    assert all(torch.equal(g, w) for g, w in zip(getattr(co, op)(ta, tb), got))
+
+
+def test_sort_runs_keeps_a_run_at_int32_max_before_the_empties():
+    # C9: JAX's sort_runs keys empties at 2**31 - 1 and leaves such a run
+    # among them in slot order
+    s = np.array([[1, 5, 1, TOP, 1]], np.int32)
+    e = np.array([[0, 9, 0, TOP, 0]], np.int32)
+    ts, te = tvc.sort_runs(torch.from_numpy(s), torch.from_numpy(e))
+    assert ts.tolist() == [[5, TOP, 1, 1, 1]]
+    assert te.tolist() == [[9, TOP, 0, 0, 0]]
+    js, je = jvc.sort_runs(jnp.asarray(s), jnp.asarray(e))
+    assert np.asarray(js).tolist() == [[5, 1, 1, TOP, 1]]
+    assert np.asarray(je).tolist() == [[9, 0, 0, TOP, 0]]

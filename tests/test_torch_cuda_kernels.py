@@ -3,8 +3,10 @@ lattice) against their plain versions, on a card: among them both routes
 of prefill attention (the bf16 tensor-core kernel and the SIMT kernel),
 the split-KV decode kernels at cache lengths on either side of a split
 edge, the scan in fp32 and bf16 on either side of its chunk, ``dot_seen``
-on either side of a warp's stride and of its shared-memory staging, and
-every wrapper but the clock lattice's replayed in a CUDA graph.
+on either side of a warp's stride and of its shared-memory staging, the
+clock merge on rows that are canonical already, that need its sort and
+that coalesce into one run, popcount on rows that do not start on 16
+bytes, and every wrapper replayed in a CUDA graph.
 
 Marked ``gpu``: without a CUDA card every test here skips.  The file
 imports neither ``jax`` nor the JAX package, so it runs on a machine that
@@ -361,16 +363,48 @@ def _edge_rows():
     return (*arrays(a), *arrays(b))
 
 
+def _canonical_clock_rows(rng, n_actors, n_runs, hi):
+    """Sorted, disjoint runs, valid ones first: the rows from_clock builds
+    and every merge returns (the bigset path's case)."""
+    s = np.ones((n_actors, n_runs), np.int64)
+    e = np.zeros((n_actors, n_runs), np.int64)
+    for a in range(n_actors):
+        used = int(rng.integers(0, n_runs + 1))
+        edges = np.unique(rng.integers(0, hi, 2 * used + 64))
+        edges = np.sort(rng.choice(edges, 2 * used, replace=False))
+        s[a, :used], e[a, :used] = edges[0::2], edges[1::2]
+    return s.astype(np.int32), e.astype(np.int32)
+
+
+def _chained_clock_rows(rng, n_actors, n_runs):
+    """Shuffled runs that overlap their neighbours: each row coalesces into
+    the one run [0, 5 * n_runs + 2]."""
+    s = np.arange(n_runs) * 5
+    rows = [rng.permutation(n_runs) for _ in range(n_actors)]
+    return (np.stack([s[r] for r in rows]).astype(np.int32),
+            np.stack([s[r] + 7 for r in rows]).astype(np.int32))
+
+
 CLOCK_SHAPES = {"ragged": (13, 25, 7, 300),   # A, Ra, Rb, counters below
                 "tomb": (1, 2000, 2000, 100_000),  # the bigset tombstone
                 "churn": (512, 128, 128, TOP),  # 512 actors of 128 runs
-                "wide": (3, 9000, 7000, TOP)}   # rows past shared memory
+                "many": (2048, 8, 8, TOP),      # many short rows
+                "wide": (3, 9000, 7000, TOP),   # rows past shared memory
+                "r0": (5, 0, 1, 300),           # popcount: no runs,
+                "r1": (7, 1, 1, 300),           # one run,
+                "r2001": (3, 2001, 2001, TOP)}  # rows not on 16 bytes
 
 
 def _clock_inputs(shape, cuda):
     rng = np.random.default_rng(5)
     if shape == "edge":
         arrays = _edge_rows()
+    elif shape == "canonical":
+        arrays = (*_canonical_clock_rows(rng, 64, 300, 2**31),
+                  *_canonical_clock_rows(rng, 64, 200, 2**31))
+    elif shape == "coalesce":
+        arrays = (*_chained_clock_rows(rng, 4, 40),
+                  *_chained_clock_rows(rng, 4, 30))
     else:
         n_actors, ra, rb, hi = CLOCK_SHAPES[shape]
         arrays = (*_clock_rows(rng, n_actors, ra, hi),
@@ -378,9 +412,19 @@ def _clock_inputs(shape, cuda):
     return [torch.from_numpy(x).to(cuda) for x in arrays]
 
 
+def _plain_merge(ref, a_s, a_e, b_s, b_e):
+    """The plain version, sorted: the canonical rows.  It runs on a few
+    rows at a time, so its [A, P, P] masks stay small."""
+    p = a_s.shape[1] + b_s.shape[1]
+    rows = max(1, (1 << 24) // (p * p))
+    parts = [ref(a_s[i:i + rows], a_e[i:i + rows], b_s[i:i + rows],
+                 b_e[i:i + rows]) for i in range(0, a_s.shape[0], rows)]
+    return sort_runs(*(torch.cat(x) for x in zip(*parts)))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", ["ragged", "edge", "tomb", "churn",
-                                   "wide"])
+                                   "wide", "canonical", "coalesce", "many"])
 def test_clock_merge_kernel_matches_plain_on_the_card(cuda, shape):
     a_s, a_e, b_s, b_e = _clock_inputs(shape, cuda)
     ra, rb = a_s.shape[1], b_s.shape[1]
@@ -389,22 +433,57 @@ def test_clock_merge_kernel_matches_plain_on_the_card(cuda, shape):
     a, b = DenseClock(a_s, a_e), DenseClock(b_s, b_e)
     merges = clock_ops.DISPATCHES.merge
     for op, mode, ref in CLOCK_MODES:
-        # the plain version row by row: its [A, P, P] masks stay small
-        want = [torch.cat(x) for x in zip(*(
-            ref(a_s[i:i + 1], a_e[i:i + 1], b_s[i:i + 1], b_e[i:i + 1])
-            for i in range(a_s.shape[0])))]
+        want = _plain_merge(ref, a_s, a_e, b_s, b_e)
         raw = clock_ops.clock_merge_cuda(mode, a_s, a_e, b_s, b_e)
-        # the kernel writes the plain version's slots, before any sort
+        # the kernel writes the canonical rows: the plain version's, sorted
         assert all(torch.equal(g, w) for g, w in zip(raw, want))
         launched = merges.kernel_launches
         got = getattr(clock_ops, op)(a, b)
         assert merges.kernel_launches == launched + 1
-        assert all(torch.equal(g, w) for g, w in zip(got, sort_runs(*want)))
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    if shape == "coalesce":
+        assert clock_ops.join(a, b).starts[:, :2].tolist() == [[0, 1]] * 4
+        assert clock_ops.join(a, b).ends[:, :2].tolist() == [[202, 0]] * 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["ragged", "tomb"])
+def test_clock_wrappers_replay_in_a_cuda_graph(cuda, shape):
+    # the route and the launch geometry are fixed at capture; new rows in
+    # the captured tensors give the plain result on replay
+    arrays = _clock_inputs(shape, cuda)
+    a, b = DenseClock(*arrays[:2]), DenseClock(*arrays[2:])
+
+    def step():
+        return ([getattr(clock_ops, op)(a, b) for op, _, _ in CLOCK_MODES],
+                clock_ops.popcount(a))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        merged, counts = step()
+    n_actors, ra, rb, hi = CLOCK_SHAPES[shape]
+    for seed in (6, 7):
+        rng = np.random.default_rng(seed)
+        fresh = (*_clock_rows(rng, n_actors, ra, hi),
+                 *_clock_rows(rng, n_actors, rb, hi))
+        for t, new in zip(arrays, fresh):
+            t.copy_(torch.from_numpy(new))
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, (_, _, ref) in zip(merged, CLOCK_MODES):
+            want = _plain_merge(ref, *arrays)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert torch.equal(counts, clock_ops.popcount_ref(*arrays[:2]))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", ["ragged", "edge", "tomb", "churn",
-                                   "wide"])
+                                   "wide", "many", "r0", "r1", "r2001"])
 def test_clock_popcount_kernel_matches_plain_on_the_card(cuda, shape):
     a_s, a_e, b_s, b_e = _clock_inputs(shape, cuda)
     pops = clock_ops.DISPATCHES.popcount
