@@ -10,8 +10,8 @@ Phases, each printed as it runs; any failure exits non-zero:
 1. device — requires ``torch.cuda.is_available()``; prints the card's
    name and power limit as ``nvidia-smi`` reports them;
 2. build — compiles every CUDA kernel of the port (``dot_seen``,
-   ``flash_attention``, ``decode_attention``, ``mamba_scan``,
-   ``clock_ops``) from the checkout's sources with ``nvcc``, one process
+   ``flash_attention`` and its backward, ``decode_attention``,
+   ``mamba_scan``, ``clock_ops``) from the checkout's sources with ``nvcc``, one process
    per source, started together, and beside them prints what
    ``nvcc -Xptxas -v`` reports (registers, shared memory, spills) for the
    attention kernels' tensor-core and split-KV routes, the scan,
@@ -76,10 +76,41 @@ Phases, each printed as it runs; any failure exits non-zero:
    the model's bf16 activations;
 10. SSM parity — the smoke ``falcon-mamba-7b`` (fp32) on ``cpu`` and on
     ``cuda``: identical greedy token streams and logits within 1e-4; in
-    bf16 (its scans read bf16), logits within 2e-2.
+    bf16 (its scans read bf16), logits within 2e-2;
+11. attention backward — the backward kernel (``flash_attention_bwd.cu``)
+    against its plain version from the same forward output and
+    log-sum-exps, and against autograd of the plain attention in fp32, at
+    the training path's shape (24 over 8 heads, T = S = 4,096, D = 128,
+    causal, bf16), a ``gemma3-27b`` local layer (window 1,024), MHA at
+    D = 256, T = 63 and fp32 (rtol 1e-4 / atol 1e-5 in fp32; in bf16
+    rtol 1.6e-2 / atol 1e-3 and 1e-3 in norm against the plain version,
+    1e-2 in norm against autograd), with two calls bit-identical; at the
+    path shape two wrong gradients (dK/dV without one query head of each
+    group over the later half of the keys, and an lse one bf16 step
+    high) must fail both checks; device, wrapper, plain
+    and SDPA backward ms beside the bound; then the forward at the serve
+    shape of the attention phase with and without the log-sum-exp output;
+12. train — the training path: ``FTTrainer`` on the full 32-layer
+    ``minitron-4b`` (bf16, fp32 AdamW moments, remat) with random weights
+    (seed 0), two simulated hosts of one 4,096-token sequence each, 4
+    steps (the global batch cut from ``train_4k``'s 256 to 2); the flash
+    counts are zeroed just before and read just after: every forward
+    (twice a layer under remat) and backward launched the kernels; step
+    ms, tokens/s and ``mfu`` over the two warm unprofiled steps (2 and 3)
+    with their spread, peak memory, the last step's device busy share
+    from ``torch.profiler``;
+13. fault tolerance — at full width and 2 layers, ``test_ft.py``'s
+    crash-restore flow at 4,096 tokens: train, checkpoint, a checkpoint
+    host crashes, a restarted fleet restores from the surviving replicas
+    and continues, with losses equal to an uninterrupted run's within
+    rtol 1e-5; save and restore seconds, the store's bytes, peak RSS;
+14. train parity — one ``train_step`` of the smoke ``minitron-4b`` (fp32)
+    from one state on ``cpu`` and on ``cuda``: loss within 1e-4,
+    parameters within rtol 1e-4 / atol 1e-5.
 
-The line before the last is one JSON object with every kernel's numbers;
-the last line is ``{"ok": true, "device": {...}}``.  The script imports
+Each phase prints its seconds (``[time]``).  The line before the last is
+one JSON object with every kernel's numbers; the last line is
+``{"ok": true, "device": {...}}``.  The script imports
 neither ``jax`` nor the JAX package ``repro``.
 """
 from __future__ import annotations
@@ -147,7 +178,7 @@ def phase_device(torch):
 PTXAS_KERNELS = ("flash_attention_kernel_tc", "decode_attention_kernel_split",
                  "decode_attention_kernel_combine", "mamba_scan_kernel",
                  "dot_seen_kernel", "clock_merge_kernel",
-                 "clock_popcount_kernel")
+                 "clock_popcount_kernel", "attn_bwd_dkdv", "attn_bwd_dq")
 _PTXAS_TYPES = {"13__nv_bfloat16": "bf16", "f": "f32"}
 
 
@@ -216,10 +247,10 @@ def phase_build():
 
     modules = [dot_seen_kernel, flash_kernel, decode_kernel, mamba_kernel,
                clock_kernel]
-    sources = [m.SOURCE for m in modules]
-    reported = [flash_kernel.SOURCE, decode_kernel.SOURCE,
-                mamba_kernel.SOURCE, dot_seen_kernel.SOURCE,
-                clock_kernel.SOURCE]
+    sources = [m.SOURCE for m in modules] + [flash_kernel.BWD_SOURCE]
+    reported = [flash_kernel.SOURCE, flash_kernel.BWD_SOURCE,
+                decode_kernel.SOURCE, mamba_kernel.SOURCE,
+                dot_seen_kernel.SOURCE, clock_kernel.SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources) + len(reported)) as pool:
         reports = pool.map(ptxas_report, reported)
@@ -227,6 +258,7 @@ def phase_build():
         reports = [r for rep in reports for r in rep]
     for m in modules:
         m.library()
+    flash_kernel.bwd_library()
     dt = time.perf_counter() - t0
     say(f"[build] {len(sources)} CUDA source(s) built for sm_90a in "
         f"{dt:.2f}s -> {build.build_dir()}")
@@ -1064,6 +1096,8 @@ def _kernel_class(name: str) -> str:
     for kernel in ("flash_attention", "decode_attention", "mamba_scan"):
         if f"{kernel}_kernel" in name:
             return kernel
+    if "attn_bwd_" in name:
+        return "flash_attention_bwd"
     low = name.lower()
     if any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass", "splitk")):
         return "matmul"
@@ -1447,6 +1481,505 @@ def phase_vlm_parity(torch, np):
         f"logits move by {moved:.3g}")
 
 
+# --------------------------------------------------- attention backward
+# The training path's shape (minitron-4b: 24 query over 8 KV heads, head
+# dim 128, one 4,096-token sequence, causal, bf16), a local layer of
+# gemma3-27b (32 over 16 heads, window 1,024), gemma-7b's MHA at head dim
+# 256, a T that does not fill a tile, and fp32.
+BWD_SHAPES = {
+    "path": dict(B=1, Hq=24, Hkv=8, T=4096, S=4096, D=128, window=None,
+                 dtype="bfloat16"),
+    "local": dict(B=1, Hq=32, Hkv=16, T=2048, S=2048, D=128, window=1024,
+                  dtype="bfloat16"),
+    "mha-256": dict(B=1, Hq=16, Hkv=16, T=1024, S=1024, D=256, window=None,
+                    dtype="bfloat16"),
+    "ragged": dict(B=1, Hq=24, Hkv=8, T=63, S=63, D=128, window=None,
+                   dtype="bfloat16"),
+    "fp32": dict(B=1, Hq=24, Hkv=8, T=1024, S=1024, D=128, window=None,
+                 dtype="float32"),
+}
+# B4''s tolerances by dtype and reference: (rtol, atol) elementwise or
+# None, and the largest ||g - ref|| / ||ref|| or None.  fp32 as the CPU
+# tests.  bf16 against the plain version (the same bf16 forward output
+# and lse): two bf16 steps of each entry (2^-6) above a floor of 1e-3,
+# and 1e-3 in norm; a sound kernel differs by one step of the largest
+# entries, 1e-4 in norm.  Against fp32 autograd (the exact output) 1e-2
+# in norm only: the backward reads the forward's bf16 output, whose
+# rounding enters delta = sum dO.O as an absolute error of every dS, so
+# entries near 0 are off by up to ~0.02 while each gradient stays within
+# 2e-3 in norm.  Wrong gradients read 0.03 and more (PERF.md section 6).
+BWD_TOL = {("float32", "plain"): ((1e-4, 1e-5), None),
+           ("float32", "autograd"): ((1e-4, 1e-5), None),
+           ("bfloat16", "plain"): ((1.6e-2, 1e-3), 1e-3),
+           ("bfloat16", "autograd"): (None, 1e-2)}
+
+
+def _grad_err(g, ref):
+    """``(max abs err, ||g - ref|| / ||ref||)`` in fp32."""
+    d = g.float() - ref.float()
+    return (float(d.abs().max()),
+            float(d.norm() / ref.float().norm().clamp_min(1e-30)))
+
+
+def _grad_ok(g, ref, dtype: str, against: str) -> bool:
+    close, rel = BWD_TOL[(dtype, against)]
+    if close is not None:
+        rtol, atol = close
+        if not bool(((g.float() - ref.float()).abs()
+                     <= atol + rtol * ref.float().abs()).all()):
+            return False
+    return rel is None or _grad_err(g, ref)[1] <= rel
+
+
+def _wrong_bwd(torch, fa, q, k, v, out, dout, lse, window, refs,
+               dtype: str):
+    """What two wrong gradients read against the plain version and fp32
+    autograd (``refs``), each of which both checks must reject: dK and dV
+    without the first query head of each group over the later half of
+    the keys (the kernel's own gradients with that head's dO zeroed,
+    spliced into its sound ones), and all three from an lse one bf16 step
+    high."""
+    G = q.shape[1] // k.shape[1]
+    sound = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=True,
+                                   window=window)
+    silent = dout.clone()
+    silent[:, ::G] = 0
+    _, dk0, dv0 = fa.flash_attention_bwd(q, k, v, out, silent, lse,
+                                         causal=True, window=window)
+    half = k.shape[2] // 2
+    dk, dv = sound[1], sound[2]
+    dk[:, :, half:] = dk0[:, :, half:]
+    dv[:, :, half:] = dv0[:, :, half:]
+    step = torch.exp2(torch.floor(torch.log2(lse.abs())) - 7)
+    high = lse + torch.where(torch.isfinite(step), step, 0.0)
+    cases = {"dkdv_without_one_query_head": dict(dk=dk, dv=dv),
+             "lse_one_bf16_step_high": dict(zip(("dq", "dk", "dv"),
+                                                fa.flash_attention_bwd(
+                                                    q, k, v, out, dout, high,
+                                                    causal=True,
+                                                    window=window)))}
+    read = {}
+    for case, grads in cases.items():
+        read[case] = {}
+        for against, ref in refs.items():
+            passes = True
+            for name, e in zip(("dq", "dk", "dv"), ref):
+                if name in grads:
+                    mx, rel = _grad_err(grads[name], e)
+                    read[case][f"{name}_vs_{against}"] = dict(
+                        max_abs_err=mx, rel_norm_err=rel)
+                    passes = passes and _grad_ok(grads[name], e, dtype,
+                                                 against)
+            check(not passes, f"flash_attention backward: a wrong gradient "
+                  f"({case}) passes the check against the {against}: "
+                  f"{read[case]}")
+    return read
+
+
+def _sdpa_bwd_ms(torch, q, k, v, dout, window, iters):
+    """The backward alone of PyTorch's fused attention on the same inputs,
+    through ``torch.autograd.grad`` (a yardstick the port never calls)."""
+    import torch.nn.functional as F
+
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    T, S = q.shape[2], k.shape[2]
+    if window is None and T == S:
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                             enable_gqa=True)
+    else:
+        qpos = torch.arange(T, device="cuda")[:, None] + S - T
+        kpos = torch.arange(S, device="cuda")[None, :]
+        mask = kpos <= qpos
+        if window is not None:
+            mask &= kpos > qpos - window
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                             enable_gqa=True)
+    return time_ms(torch, lambda: torch.autograd.grad(
+        out, (q, k, v), dout, retain_graph=True), iters, warmup=2)
+
+
+def phase_attention_bwd(torch, fwd_path_ms):
+    """B4', the attention backward, against its plain version (from the
+    same forward output and log-sum-exps) and against autograd of the
+    plain attention in fp32 on the same inputs, at ``BWD_SHAPES``; timings
+    beside the bound and SDPA's backward; then the forward at the
+    attention phase's serve shape with and without the lse output."""
+    from repro_torch.kernels import flash_attention as fa
+
+    results = {}
+    gen = torch.Generator(device="cuda")
+    for shape, s in BWD_SHAPES.items():
+        dtype = getattr(torch, s["dtype"])
+        gen.manual_seed(11)
+        B, Hq, Hkv, T, S, D, w = (s[n] for n in ("B", "Hq", "Hkv", "T", "S",
+                                                 "D", "window"))
+        q = torch.randn((B, Hq, T, D), generator=gen, device="cuda",
+                        dtype=dtype)
+        k = torch.randn((B, Hkv, S, D), generator=gen, device="cuda",
+                        dtype=dtype)
+        v = torch.randn(k.shape, generator=gen, device="cuda", dtype=dtype)
+        dout = torch.randn(q.shape, generator=gen, device="cuda", dtype=dtype)
+        scale = D ** -0.5
+        lse = torch.empty((B, Hq, T), dtype=torch.float32, device="cuda")
+        out = fa.flash_attention_cuda(q, k, v, causal=True, window=w,
+                                      scale=scale, lse=lse)
+        before = fa.BWD_DISPATCHES.kernel_launches
+        got = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=True,
+                                     window=w)
+        torch.cuda.synchronize()
+        check(fa.BWD_DISPATCHES.kernel_launches == before + 1,
+              f"flash_attention backward {shape}: not on the kernel")
+        want = fa.attention_bwd_ref(q, k, v, out, dout, lse, causal=True,
+                                    window=w)
+        # autograd of the plain attention, in fp32 on the same values
+        leaves_ = [t.float().requires_grad_() for t in (q, k, v)]
+        exact = torch.autograd.grad(
+            fa.attention_ref(*leaves_, causal=True, window=w), leaves_,
+            dout.float())
+        del leaves_
+        errs, auto_errs, rel_errs = [], [], {}
+        for name, g, p, e in zip(("dq", "dk", "dv"), got, want, exact):
+            check(bool(torch.isfinite(g).all()),
+                  f"flash_attention backward {shape}: {name} not finite")
+            for ref, what, tag, into in (
+                    (p, "plain version", "plain", errs),
+                    (e, "fp32 autograd", "autograd", auto_errs)):
+                mx, rel = _grad_err(g, ref)
+                into.append(mx)
+                rel_errs[f"{name}_vs_{tag}"] = rel
+                check(_grad_ok(g, ref, s["dtype"], tag),
+                      f"flash_attention backward {shape} {name} against the "
+                      f"{what}: max abs err {mx}, relative in norm {rel}")
+        again = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=True,
+                                       window=w)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"flash_attention backward {shape}: two calls differ")
+        wrong = (_wrong_bwd(torch, fa, q, k, v, out, dout, lse, w,
+                            dict(plain=want, autograd=exact), s["dtype"])
+                 if shape == "path" else None)
+        del exact, want, again
+        pairs = _visible_pairs(T, S, w)
+        # five products of the visible pairs; q, k, v, o, dO and lse read,
+        # dq, dk, dv written once
+        ops = 10 * D * pairs * Hq * B
+        nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+            + 4 * lse.numel()
+        bound_ms, bound_by = _bound(nbytes, ops, s["dtype"])
+        res = dict(shape=f"B={B},Hq={Hq},Hkv={Hkv},T={T},S={S},D={D},"
+                   f"window={w}", dtype=s["dtype"], max_abs_err=max(errs),
+                   max_abs_err_vs_fp32_autograd=max(auto_errs),
+                   rel_norm_err=rel_errs,
+                   bound_ms=bound_ms, bound_by=bound_by, ops=ops,
+                   bytes=nbytes)
+        iters = 3 if shape == "path" else 5
+        res["ms"] = time_ms(torch, lambda: fa.flash_attention_bwd(
+            q, k, v, out, dout, lse, causal=True, window=w), iters, warmup=1)
+        res["device_ms"] = graph_ms(torch, lambda: fa.flash_attention_bwd_cuda(
+            q, k, v, out, dout, lse, causal=True, window=w, scale=scale),
+            iters)
+        res["plain_ms"] = time_ms(torch, lambda: fa.attention_bwd_ref(
+            q, k, v, out, dout, lse, causal=True, window=w), 2, warmup=1)
+        res["library_ms"] = _sdpa_bwd_ms(torch, q, k, v, dout, w, iters)
+        if wrong is not None:
+            res["wrong_gradients_rejected"] = wrong
+        results[shape] = res
+        say(f"[kernel] flash_attention backward {shape} {s['dtype']}: "
+            f"{json.dumps(res)}")
+
+    # the forward at the attention phase's serve shape: the serve route
+    # (no lse), as that phase timed it, and the training route (lse
+    # written)
+    gen.manual_seed(7)
+    s = FLASH_SHAPES["path"]
+    q = torch.randn((s["B"], s["Hq"], s["T"], s["D"]), generator=gen,
+                    device="cuda", dtype=torch.bfloat16)
+    k = torch.randn((s["B"], s["Hkv"], s["S"], s["D"]), generator=gen,
+                    device="cuda", dtype=torch.bfloat16)
+    v = torch.randn(k.shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device="cuda")
+    scale = s["D"] ** -0.5
+    serve = graph_ms(torch, lambda: fa.flash_attention_cuda(
+        q, k, v, causal=True, window=None, scale=scale), 20)
+    train = graph_ms(torch, lambda: fa.flash_attention_cuda(
+        q, k, v, causal=True, window=None, scale=scale, lse=lse), 20)
+    want = fa.attention_lse_ref(q, k, causal=True)
+    lse_err = float((lse - want).abs().max())
+    check(lse_err <= 1e-3, f"flash_attention lse: max abs err {lse_err}")
+    fwd = dict(shape="B=1,Hq=32,Hkv=16,T=1536,S=1536,D=128,bf16",
+               serve_device_ms_attention_phase=fwd_path_ms,
+               serve_device_ms=serve, with_lse_device_ms=train,
+               lse_max_abs_err=lse_err)
+    say(f"[kernel] flash_attention forward at the serve shape: "
+        f"{json.dumps(fwd)}")
+    return results
+
+
+# --------------------------------------------------------- training path
+TRAIN_ARCH = "minitron-4b"
+TRAIN_STEPS = 4  # a warm-up, two timed steps, one profiled
+
+
+def _host_gb():
+    """The process's peak resident set, GB (``ru_maxrss`` is in KiB)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def _count_attention(fa):
+    return (fa.DISPATCHES.snapshot(), fa.BWD_DISPATCHES.snapshot(),
+            dict(fa.ROUTE_LAUNCHES))
+
+
+def _reset_attention(fa):
+    fa.DISPATCHES.reset()
+    fa.BWD_DISPATCHES.reset()
+    for route in fa.ROUTE_LAUNCHES:
+        fa.ROUTE_LAUNCHES[route] = 0
+
+
+def _trace_busy(torch, fn, what: str):
+    """Run ``fn`` once (no warm-up call) under ``torch.profiler``: (device
+    ms, wall ms, device ms by kernel class), or None when the profiler
+    fails to start or to stop.  A failure of ``fn`` itself propagates."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except RuntimeError as e:
+        say(f"{what} profile: not measured ({e})")
+        fn()
+        return None
+    t0 = time.perf_counter()
+    try:
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        try:
+            prof.stop()
+        except RuntimeError as e:
+            say(f"{what} profile: not measured ({e})")
+            prof = None
+    if prof is None:
+        return None
+    classes = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            c = _kernel_class(ev.name)
+            classes[c] = classes.get(c, 0.0) + ev.time_range.elapsed_us() / 1e3
+    return sum(classes.values()), wall * 1e3, classes
+
+
+def phase_train(torch, np):
+    """The training path: ``FTTrainer`` on the full ``minitron-4b`` (32
+    layers, d_model 3072, bf16, fp32 AdamW moments, remat) with random
+    weights from seed 0, two simulated hosts of one 4,096-token sequence
+    each, 4 steps (rates over the two warm unprofiled ones); every
+    attention forward and backward on the kernels."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.runtime.ft import FTConfig, FTTrainer
+
+    cfg = get_config(TRAIN_ARCH)
+    ft = FTConfig(n_hosts=2, global_batch=2, seq_len=4096,
+                  ckpt_every=TRAIN_STEPS + 1)
+    tokens = ft.global_batch * ft.seq_len
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = FTTrainer(cfg, ft, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    from repro_torch.tree import leaves
+    n = sum(t.numel() for t in leaves(tr.state.params))
+    # reckoned before the first step: bf16 parameters, fp32 m and v, the
+    # running gradient sum and one host's fresh gradients (bf16 each)
+    reckoned = dict(params_gb=2 * n / 1e9, moments_gb=8 * n / 1e9,
+                    grad_sum_gb=2 * n / 1e9, fresh_grads_gb=2 * n / 1e9)
+    reckoned["total_gb_before_activations"] = sum(reckoned.values())
+    say(f"[train {TRAIN_ARCH}] {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff} ({cfg.hidden_act}), vocab {cfg.vocab_size} tied, "
+        f"{cfg.dtype}, {cfg.optimizer_moments} moments, remat={cfg.remat}; "
+        f"{n} parameters held (ModelConfig.n_params: {cfg.n_params()}); "
+        f"global batch cut from train_4k's 256 to "
+        f"{ft.global_batch} ({ft.n_hosts} hosts x 1 x {ft.seq_len} tokens); "
+        f"reckoned: {json.dumps(reckoned)}")
+
+    _reset_attention(fa)
+    step_ms, losses = [], []
+    trace = None
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == TRAIN_STEPS - 1:
+            trace = _trace_busy(torch, lambda: losses.extend(
+                tr.train_steps(1)), f"[train {TRAIN_ARCH}]")
+        else:
+            losses.extend(tr.train_steps(1))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    fwd, bwd, routes = _count_attention(fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"{TRAIN_ARCH} training losses {losses}")
+    want_bwd = cfg.n_layers * ft.n_hosts * TRAIN_STEPS
+    want_fwd = 2 * want_bwd if cfg.remat else want_bwd
+    check(bwd.launches == bwd.kernel_launches == want_bwd,
+          f"flash_attention backward launches {vars(bwd)} != {want_bwd}")
+    check(fwd.launches == fwd.kernel_launches == want_fwd,
+          f"flash_attention forward launches {vars(fwd)} != {want_fwd}")
+    check(routes == {"tc": want_fwd, "simt": 0},
+          f"flash_attention launches by route {routes}")
+    # model FLOPs: 6 x parameters x tokens, plus causal attention (4
+    # flops a visible pair and head dim in the forward, twice that back)
+    attn = 12 * cfg.n_layers * cfg.n_heads * cfg.head_dim \
+        * _visible_pairs(ft.seq_len, ft.seq_len, None) * ft.global_batch
+    flops = 6 * n * tokens + attn
+    timed = step_ms[1:-1]  # warm and unprofiled
+    warm = sum(timed) / len(timed)
+    stats = dict(
+        steps=TRAIN_STEPS, losses=losses, step_ms=step_ms,
+        traced_step=TRAIN_STEPS, timed_steps=len(timed), warm_step_ms=warm,
+        warm_step_ms_spread=[min(timed), max(timed)], n_params=n,
+        tokens_per_step=tokens, tokens_per_s=tokens / warm * 1e3,
+        model_flops_per_step=flops,
+        mfu=flops / (warm / 1e3) / PEAK_BF16_OPS_PER_S,
+        init_s=t_init, state_gb=state_gb, peak_gb=peak_gb,
+        host_peak_rss_gb=_host_gb(),
+        flash_forward=vars(fwd), flash_backward=vars(bwd),
+        expected_forward=want_fwd, expected_backward=want_bwd)
+    if trace is not None:
+        device_ms, wall_ms, classes = trace
+        stats.update(traced_device_ms=device_ms, traced_wall_ms=wall_ms,
+                     device_busy_share=device_ms / wall_ms,
+                     device_ms_by_class=classes)
+    say(f"[train {TRAIN_ARCH}] trained: {json.dumps(stats)}")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats, bwd
+
+
+def phase_ft(torch, np):
+    """The launcher's fault-tolerance flow at full width, 2 layers, with
+    ``test_ft.py``'s crash-restore ``FTConfig`` at 4,096 tokens: an
+    uninterrupted run of 8 steps; then 4 steps (checkpoint at step 4),
+    checkpoint host 1 crashes, a restarted fleet restores from the
+    surviving replicas and trains 4 more; the losses must equal the
+    uninterrupted run's within rtol 1e-5."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.ft import FTConfig, FTTrainer
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2)
+    ft = FTConfig(n_hosts=3, global_batch=6, seq_len=4096, ckpt_every=4)
+    say(f"[ft {TRAIN_ARCH}] full width, depth cut from 32 to 2 layers "
+        "(BigStore keeps every shard's bytes on the host: the tied "
+        "embedding with its fp32 moments is 7.9 GB alone, the 2-layer "
+        "state 9.5 GB, and each save writes a new version of it); "
+        f"FTConfig {json.dumps(dataclasses.asdict(ft))}")
+    saves = []
+
+    def timed_checkpoints(tr):
+        save = tr.checkpoint
+
+        def checkpoint():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = save()
+            saves.append(time.perf_counter() - t0)
+            return out
+        tr.checkpoint = checkpoint
+        return tr
+
+    t0 = time.perf_counter()
+    ref = FTTrainer(cfg, ft, device="cuda")
+    ref_losses = ref.train_steps(8)
+    del ref
+    gc.collect()
+    tr = timed_checkpoints(FTTrainer(cfg, ft, device="cuda"))
+    losses_a = tr.train_steps(4)
+    check(len(saves) == 1, "no checkpoint at step 4")
+    tr.crash_host(1)
+    store = tr.store
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr2 = timed_checkpoints(FTTrainer(cfg, ft, device="cuda"))
+    tr2.store = store
+    t1 = time.perf_counter()
+    step = tr2.restore()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    check(step == 4, f"restored at step {step}, not 4")
+    losses_b = tr2.train_steps(4)
+    got = losses_a + losses_b
+    err = max(abs(a - b) / abs(b) for a, b in zip(got, ref_losses))
+    check(all(np.isfinite(ref_losses)) and err <= 1e-5,
+          f"restored run {got} != uninterrupted {ref_losses} (rel {err})")
+    stats = dict(layers=cfg.n_layers, losses=got, uninterrupted=ref_losses,
+                 max_rel_err=err, bit_equal=got == ref_losses,
+                 save_s=saves, restore_s=restore_s,
+                 store_total_bytes=store.total_bytes(),
+                 alive_ckpt_hosts=sum(h.alive for h in store.hosts),
+                 host_peak_rss_gb=_host_gb(),
+                 wall_s=time.perf_counter() - t0)
+    say(f"[ft {TRAIN_ARCH}] crash, restore, continue: {json.dumps(stats)}")
+    del tr2, store
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase_train_parity(torch, np):
+    """One ``train_step`` of the smoke ``minitron-4b`` (fp32) from the same
+    state on cpu and on cuda: the loss within 1e-4, every parameter after
+    the step within rtol 1e-4 / atol 1e-5; the cuda step's attention on
+    the kernels."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves, map_tree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config(TRAIN_ARCH)
+    cpu, gpu = build_model(cfg, "cpu"), build_model(cfg, "cuda")
+    state = cpu.init_train_state(0)
+    gstate = map_tree(lambda t: t.to("cuda"), state)
+    tok = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (4, 65)), dtype=torch.int32)
+    state, m_cpu = cpu.train_step(state, {"tokens": tok})
+    _reset_attention(fa)
+    gstate, m_gpu = gpu.train_step(gstate, {"tokens": tok.to("cuda")})
+    torch.cuda.synchronize()
+    fwd, bwd, _ = _count_attention(fa)
+    check(fwd.kernel_launches == fwd.launches == cfg.n_layers
+          and bwd.kernel_launches == bwd.launches == cfg.n_layers,
+          f"the cuda smoke train step: forward {vars(fwd)}, "
+          f"backward {vars(bwd)}")
+    loss_err = abs(float(m_gpu["loss"]) - float(m_cpu["loss"]))
+    check(loss_err <= 1e-4, f"train step loss: cpu {float(m_cpu['loss'])} "
+          f"cuda {float(m_gpu['loss'])}")
+    errs = []
+    for a, b in zip(leaves(gstate.params), leaves(state.params)):
+        a = a.cpu()
+        errs.append(float((a - b).abs().max()))
+        check(bool(((a - b).abs() <= 1e-5 + 1e-4 * b.abs()).all()),
+              f"a parameter after the train step differs by {errs[-1]}")
+    say(f"[train parity] smoke {TRAIN_ARCH} fp32, one train_step: loss "
+        f"{float(m_cpu['loss']):.6f} (cpu) vs {float(m_gpu['loss']):.6f} "
+        f"(cuda), parameters within {max(errs):.3g}")
+
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -1456,22 +1989,33 @@ def main() -> int:
     import numpy as np
     import torch
 
+    def run(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        say(f"[time] {fn.__name__}: {time.perf_counter() - t0:.2f}s")
+        return out
+
     try:
-        phase_device(torch)
-        phase_build()
-        kres = phase_kernels(torch, np)
-        ares = phase_attention_kernels(torch)
-        mres = phase_mamba_kernel(torch)
-        cres = phase_clock_kernels(torch, np)
-        launched, cluster = phase_main(torch)
-        clock_launched = phase_clock_entry(torch, cluster)
+        run(phase_device, torch)
+        run(phase_build)
+        kres = run(phase_kernels, torch, np)
+        ares = run(phase_attention_kernels, torch)
+        mres = run(phase_mamba_kernel, torch)
+        cres = run(phase_clock_kernels, torch, np)
+        launched, cluster = run(phase_main, torch)
+        clock_launched = run(phase_clock_entry, torch, cluster)
         del cluster
-        phase_parity(torch)
-        flash, decode = phase_model(torch, np)
-        phase_model_parity(torch, np)
-        phase_vlm_parity(torch, np)
-        scans = phase_ssm_model(torch, np)
-        phase_ssm_parity(torch, np)
+        run(phase_parity, torch)
+        flash, decode = run(phase_model, torch, np)
+        run(phase_model_parity, torch, np)
+        run(phase_vlm_parity, torch, np)
+        scans = run(phase_ssm_model, torch, np)
+        run(phase_ssm_parity, torch, np)
+        bres = run(phase_attention_bwd, torch,
+                   ares[("flash_attention", "path", "bfloat16")]["device_ms"])
+        _, train_bwd = run(phase_train, torch, np)
+        run(phase_ft, torch, np)
+        run(phase_train_parity, torch, np)
         leaked = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m == "repro" or m.startswith("repro."))
@@ -1556,6 +2100,25 @@ def main() -> int:
             "device_ms": res["device_ms"],
             "shape": tomb["shape"] + (",join" if name == "clock_merge" else ""),
         })
+    bpath = bres["path"]
+    kernels.append({
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:102 "
+                    "(its gradient: no Pallas backward; JAX differentiates "
+                    "the jnp reference)",
+        "launches": train_bwd.kernel_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in bres.values()),
+        "ms": bpath["ms"],
+        "plain_ms": bpath["plain_ms"],
+        "bound_ms": bpath["bound_ms"],
+        "bound_by": bpath["bound_by"],
+        "library_ms": bpath["library_ms"],
+        "device_ms": bpath["device_ms"],
+        "shape": f"{bpath['shape']},bf16",
+    })
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

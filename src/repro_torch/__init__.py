@@ -7,8 +7,12 @@ points run on the card unless the caller passes ``device="cpu"``.
 
 Ported so far: the bigset serve path — ``core`` (with the dense interval
 clock in ``core.vclock``), ``storage``, ``index``, ``query``, ``obs``,
-``cluster`` (without ``membership``), ``serve.bigset_service``,
-``launch.serve_bigset`` — and the ``dot_seen`` CUDA kernel.
+``cluster``, ``serve.bigset_service``, ``launch.serve_bigset`` — with the
+``dot_seen`` kernel; the ``clock_ops`` entry point; the model serve path
+(``configs``, ``models``, ``serve.engine``, ``launch.serve``) with the
+attention and scan kernels; and training of the dense family (``train``,
+``checkpoint``, ``runtime``, ``launch.train``) with attention's backward
+kernel.  ``ROADMAP.md`` lists what is left.
 """
 # core before index: index.postings -> core -> bigset -> index.postings
 from . import core  # noqa: F401

@@ -85,3 +85,24 @@ def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any],
             layers.append(conv(tree["tail"][i - n_groups * g]))
     out["layers"] = layers
     return out
+
+
+def train_state_from_jax(cfg: ModelConfig, state_tree,
+                         device: DeviceLike = None):
+    """The port's :class:`~repro_torch.models.model.TrainState` holding a
+    JAX ``TrainState`` given as numpy leaves (for example
+    ``jax.tree.map(np.asarray, state)``): its parameters, its optimizer
+    moments (``opt["mu"]``: ``m`` and ``v``, or ``v_row`` / ``v_col``,
+    which share the parameters' structure down to each parameter's dict)
+    unstacked as :func:`params_from_jax` unstacks the parameters, and its
+    step counters as int32 tensors.  A JAX gradient tree has the
+    parameters' structure: :func:`params_from_jax` carries it across."""
+    from .models.model import TrainState
+
+    dev = resolve_device(device)
+    params, opt, step = state_tree
+    out_opt = {"step": tensor_from_numpy(
+                   np.asarray(opt["step"], np.int32), dev),
+               "mu": params_from_jax(cfg, opt["mu"], dev)}
+    return TrainState(params_from_jax(cfg, params, dev), out_opt,
+                      tensor_from_numpy(np.asarray(step, np.int32), dev))

@@ -3,7 +3,9 @@
 * ``dot_seen`` — batched dot-membership filter (the bigset read fold),
   CUDA C++ in ``dot_seen/csrc/dot_seen.cu``;
 * ``flash_attention`` — blocked prefill attention (causal / sliding
-  window, GQA), CUDA C++ in ``flash_attention/csrc/flash_attention.cu``;
+  window, GQA), CUDA C++ in ``flash_attention/csrc/flash_attention.cu``,
+  and its backward (training, through a ``torch.autograd.Function``) in
+  ``flash_attention/csrc/flash_attention_bwd.cu``;
 * ``decode_attention`` — one token against a KV cache, CUDA C++ in
   ``decode_attention/csrc/decode_attention.cu``;
 * ``mamba_scan`` — the Mamba-1 selective scan, returning the final state

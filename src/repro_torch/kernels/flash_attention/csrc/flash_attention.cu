@@ -10,6 +10,10 @@
 // over the keys j the row may see: j <= qpos when causal, j > qpos - window
 // when a window is given, and j < S.  G = Hq / Hkv (GQA: q head h reads kv
 // head h / G, as jnp.repeat along heads).  A row that sees no key gives 0.
+// Given an lse buffer (training), both routes also write each row's
+// log-sum-exp of the scaled scores, fp32 [B, Hq, T] (+inf for a row that
+// sees no key), which the backward (flash_attention_bwd.cu) reads; serve
+// launches pass null and write nothing more.
 //
 // Bound.  At the serve path's prefill (B = 1, Hq = 32, Hkv = 16, T = S =
 // 1536, D = 128, bf16) a layer does 4 * Hq * D * (visible pairs) flops:
@@ -112,8 +116,8 @@ template <typename T, int DMAX, int BK>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
-                       int Hq, int Hkv, int T_len, int S, int D, float scale,
-                       int causal, int window) {
+                       float* __restrict__ lse, int Hq, int Hkv, int T_len,
+                       int S, int D, float scale, int causal, int window) {
   constexpr int kKeysPerLane = BK / kLanesPerRow;
   constexpr int kAccPerLane = DMAX / kLanesPerRow;
   extern __shared__ float smem[];
@@ -221,13 +225,18 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = lane4 + kLanesPerRow * i;
       if (d < D) orow[d] = from_float<T>(acc[i] * inv);
     }
+    // the row's log-sum-exp of the scaled scores, for the backward; +inf
+    // where the row sees no key (its probabilities are then all 0)
+    if (lse != nullptr && lane4 == 0)
+      lse[(static_cast<int64_t>(b) * Hq + h) * T_len + q0 + row] =
+          (l == 0.f) ? CUDART_INF_F : m + logf(l);
   }
 }
 
 template <typename T, int DMAX, int BK>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int T_len, int S, int D, float scale, int causal,
-           int window, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Hq, int Hkv, int T_len, int S, int D, float scale,
+           int causal, int window, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       (static_cast<size_t>(kBQ) * (D + 1) + static_cast<size_t>(BK) * (D + 1) +
        static_cast<size_t>(BK) * D + static_cast<size_t>(kBQ) * (BK + 1));
@@ -247,28 +256,33 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((T_len + kBQ - 1) / kBQ, Hq, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, T_len, S, D,
-      scale, causal, window);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Hq, Hkv, T_len, S,
+      D, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
-               int Hq, int Hkv, int T_len, int S, int D, float scale,
-               int causal, int window, cudaStream_t stream) {
+int dispatch_d(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Hq, int Hkv, int T_len, int S, int D,
+               float scale, int causal, int window, cudaStream_t stream) {
   if (D <= 32)
-    return launch<T, 32, 64>(q, k, v, o, B, Hq, Hkv, T_len, S, D, scale,
+    return launch<T, 32, 64>(q, k, v, o, lse, B, Hq, Hkv, T_len, S, D, scale,
                              causal, window, stream);
   if (D <= 64)
-    return launch<T, 64, 64>(q, k, v, o, B, Hq, Hkv, T_len, S, D, scale,
+    return launch<T, 64, 64>(q, k, v, o, lse, B, Hq, Hkv, T_len, S, D, scale,
                              causal, window, stream);
   if (D <= 128)
-    return launch<T, 128, 32>(q, k, v, o, B, Hq, Hkv, T_len, S, D, scale,
-                              causal, window, stream);
-  return launch<T, 256, 32>(q, k, v, o, B, Hq, Hkv, T_len, S, D, scale,
+    return launch<T, 128, 32>(q, k, v, o, lse, B, Hq, Hkv, T_len, S, D,
+                              scale, causal, window, stream);
+  return launch<T, 256, 32>(q, k, v, o, lse, B, Hq, Hkv, T_len, S, D, scale,
                             causal, window, stream);
 }
 
+
+__global__ void fill_inf(float* __restrict__ x, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) x[i] = CUDART_INF_F;
+}
 
 // ---------------------------------------------------------------------------
 // The tensor-core route: bf16, D % 16 == 0, D <= 256.
@@ -406,7 +420,8 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
 flash_attention_kernel_tc(__grid_constant__ const CUtensorMap map_q,
                           __grid_constant__ const CUtensorMap map_k,
                           __grid_constant__ const CUtensorMap map_v,
-                          __nv_bfloat16* __restrict__ o, int Hq, int Hkv,
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int Hq, int Hkv,
                           int T_len, int S, int D, float scale_log2,
                           int causal, int window) {
   using L = Smem<DP, NWG, NST>;
@@ -619,6 +634,16 @@ flash_attention_kernel_tc(__grid_constant__ const CUtensorMap map_q,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  if (lse != nullptr && tq == 0) {
+    // log-sum-exp of the scaled scores: p = 2^((s - m) scale_log2), so
+    // lse = (m scale_log2 + log2 l) ln 2; +inf where a row sees no key
+    constexpr float kLn2 = 0.69314718055994531f;
+    float* lb = lse + static_cast<int64_t>(bh) * T_len;
+    if (r0 < T_len)
+      lb[r0] = l0 > 0.f ? (m0 * scale_log2 + log2f(l0)) * kLn2 : CUDART_INF_F;
+    if (r1 < T_len)
+      lb[r1] = l1 > 0.f ? (m1 * scale_log2 + log2f(l1)) * kLn2 : CUDART_INF_F;
+  }
   __nv_bfloat16* ob =
       o + static_cast<int64_t>(bh) * T_len * D;
 #pragma unroll
@@ -688,9 +713,9 @@ bool encode_map(CUtensorMap* map, const void* base, int D, int rows,
 }
 
 template <int DP, int NWG, int NST>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int T_len, int S, int D, float scale, int causal,
-           int window, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Hq, int Hkv, int T_len, int S, int D, float scale,
+           int causal, int window, cudaStream_t stream) {
   using L = Smem<DP, NWG, NST>;
   CUtensorMap map_q, map_k, map_v;
   if (!encode_map(&map_q, q, D, T_len, B * Hq, L::kBQ) ||
@@ -710,8 +735,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   }
   const dim3 grid(B * Hq, (T_len + L::kBQ - 1) / L::kBQ);
   kernel<<<grid, 128 * NWG + 32, L::kBytes, stream>>>(
-      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), Hq, Hkv, T_len, S,
-      D, scale * 1.4426950408889634f, causal, window);
+      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), lse, Hq, Hkv,
+      T_len, S, D, scale * 1.4426950408889634f, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -722,49 +747,60 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // Launch the SIMT route on `stream`; returns a cudaError_t (0 on success).
 // q/o are contiguous [B, Hq, T, D], k/v contiguous [B, Hkv, S, D], all of
 // one dtype (dtype 0: float32, 1: bfloat16), 16-byte aligned.  window < 0
-// means no window.  The host checks Hq % Hkv == 0, D % 8 == 0 and
-// 8 <= D <= 256.
+// means no window.  lse, when not null, is fp32 [B, Hq, T] and receives
+// each row's log-sum-exp (the backward's input); serve launches pass null.
+// The host checks Hq % Hkv == 0, D % 8 == 0 and 8 <= D <= 256.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int Hq,
-                                      int Hkv, int T_len, int S, int D,
-                                      float scale, int causal, int window,
-                                      int dtype, void* stream) {
+                                      const void* v, void* o, void* lse,
+                                      int B, int Hq, int Hkv, int T_len,
+                                      int S, int D, float scale, int causal,
+                                      int window, int dtype, void* stream) {
   if (B <= 0 || Hq <= 0 || T_len <= 0 || D <= 0 || D > 256 || Hkv <= 0 ||
       Hq % Hkv != 0 || S < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   if (dtype == 0)
-    return dispatch_d<float>(q, k, v, o, B, Hq, Hkv, T_len, S, D, scale,
-                             causal, window, st);
+    return dispatch_d<float>(q, k, v, o, lse_f, B, Hq, Hkv, T_len, S, D,
+                             scale, causal, window, st);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, T_len, S, D,
-                                     scale, causal, window, st);
+    return dispatch_d<__nv_bfloat16>(q, k, v, o, lse_f, B, Hq, Hkv, T_len, S,
+                                     D, scale, causal, window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Launch the tensor-core route on `stream`: bf16 only, layouts as above,
-// D % 16 == 0 and D <= 256.  Returns a cudaError_t (0 on success).
+// Launch the tensor-core route on `stream`: bf16 only, layouts and lse as
+// above, D % 16 == 0 and D <= 256.  Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
-                                         const void* v, void* o, int B,
-                                         int Hq, int Hkv, int T_len, int S,
-                                         int D, float scale, int causal,
-                                         int window, void* stream) {
+                                         const void* v, void* o, void* lse,
+                                         int B, int Hq, int Hkv, int T_len,
+                                         int S, int D, float scale,
+                                         int causal, int window,
+                                         void* stream) {
   if (B <= 0 || Hq <= 0 || T_len <= 0 || D <= 0 || D > 256 || D % 16 != 0 ||
       Hkv <= 0 || Hq % Hkv != 0 || S < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (S == 0)  // no key: every row gives 0
+  float* lse_f = static_cast<float*>(lse);
+  if (S == 0) {  // no key: every row gives 0, and its lse is +inf
+    if (lse_f != nullptr) {
+      const int rows = B * Hq * T_len;
+      fill_inf<<<(rows + 255) / 256, 256, 0, st>>>(lse_f, rows);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
     return static_cast<int>(cudaMemsetAsync(
         o, 0, static_cast<size_t>(B) * Hq * T_len * D * 2, st));
+  }
   if (D <= 64)
-    return tc::launch<64, 2, 3>(q, k, v, o, B, Hq, Hkv, T_len, S, D, scale,
-                                causal, window, st);
+    return tc::launch<64, 2, 3>(q, k, v, o, lse_f, B, Hq, Hkv, T_len, S, D,
+                                scale, causal, window, st);
   if (D <= 128)
-    return tc::launch<128, 2, 3>(q, k, v, o, B, Hq, Hkv, T_len, S, D, scale,
-                                 causal, window, st);
+    return tc::launch<128, 2, 3>(q, k, v, o, lse_f, B, Hq, Hkv, T_len, S, D,
+                                 scale, causal, window, st);
   // one consumer warpgroup: with two, the block's 288 threads are given
   // registers as if they were 384 (168 a thread), and 128 fp32 accumulators
   // of O spill
-  return tc::launch<256, 1, 3>(q, k, v, o, B, Hq, Hkv, T_len, S, D, scale,
-                               causal, window, st);
+  return tc::launch<256, 1, 3>(q, k, v, o, lse_f, B, Hq, Hkv, T_len, S, D,
+                               scale, causal, window, st);
 }

@@ -12,12 +12,20 @@ from the dtype and the head dim before the launch:
   ``flash_attention_kernel``, 64 query rows a block on the fp32 CUDA cores,
   the exact route for fp32 (the tensor cores would compute in TF32).
 
-The source note gives the bound.  This module builds the source with
+Both routes write each row's log-sum-exp when given an ``lse`` buffer
+(training); the serve path passes none.  The backward, which the JAX
+package leaves to XLA's autodiff of its jnp reference, is
+``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd_cuda`): three
+SIMT launches, delta, then dK / dV a KV tile a block, then dQ a query tile
+a block, with no atomics.
+
+The source notes give the bounds.  This module builds the sources with
 ``nvcc`` at first use (see :mod:`repro_torch.kernels.build`) and launches
-it through :mod:`ctypes` on PyTorch's current stream.  It does not
-synchronise, and it allocates only the output.  Callers go through
-:func:`repro_torch.kernels.flash_attention.ops.flash_attention`, which
-checks the arguments.
+them through :mod:`ctypes` on PyTorch's current stream.  It does not
+synchronise, and it allocates only the outputs and the backward's delta
+scratch.  Callers go through
+:mod:`repro_torch.kernels.flash_attention.ops`, which checks the
+arguments.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ import torch
 from ..build import load
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -51,27 +60,42 @@ def library() -> ctypes.CDLL:
     """The built kernel library (compiled on first call, then cached)."""
     lib = load(SOURCE)
     simt = lib.flash_attention_launch
-    simt.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    simt.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                      + [ctypes.c_float] + [ctypes.c_int] * 3
                      + [ctypes.c_void_p])
     simt.restype = ctypes.c_int
     tc = lib.flash_attention_tc_launch
-    tc.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    tc.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     tc.restype = ctypes.c_int
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def bwd_library() -> ctypes.CDLL:
+    """The built backward library (compiled on first call, then cached)."""
+    lib = load(BWD_SOURCE)
+    fn = lib.flash_attention_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, window: Optional[int],
-                         scale: float) -> torch.Tensor:
+                         scale: float,
+                         lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[B, Hq, T, D]`` on the card, on the route :func:`flash_route`
-    picks; raises if the launch is refused."""
+    picks; raises if the launch is refused.  ``lse`` (fp32 ``[B, Hq, T]``,
+    contiguous), when given, receives each row's log-sum-exp."""
     B, Hq, T, D = q.shape
     _, Hkv, S, _ = k.shape
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             B, Hq, Hkv, T, S, D, ctypes.c_float(scale), int(causal),
             -1 if window is None else int(window))
     route = flash_route(q.dtype, D)
@@ -85,3 +109,29 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"flash_attention CUDA launch ({route} route) failed: "
             f"cudaError {rc}")
     return out
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             dout: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool, window: Optional[int],
+                             scale: float):
+    """``(dq, dk, dv)`` on the card, in the inputs' dtype; raises if a
+    launch is refused."""
+    B, Hq, T, D = q.shape
+    _, Hkv, S, _ = k.shape
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = bwd_library().flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, Hq, Hkv, T, S, D,
+        ctypes.c_float(scale), int(causal),
+        -1 if window is None else int(window), DTYPE_CODES[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"flash_attention backward CUDA launch failed: cudaError {rc}")
+    return dq, dk, dv

@@ -6,10 +6,20 @@ fails — there is no fallback.  The JAX package runs its jnp reference
 unless a caller passes ``use_pallas=True``; the port has no such switch:
 on the card, every call is the kernel.
 
-Every call is tallied in :data:`DISPATCHES` (rows = query rows,
+Under autograd (grad enabled and an input that requires grad) a call goes
+through :class:`FlashAttentionFunction`: its forward is the same launch
+with each row's log-sum-exp written beside the output, its backward
+:func:`flash_attention_bwd` — the CUDA backward kernel on the card, the
+plain :func:`.ref.attention_bwd_ref` on the CPU.  The Function keeps only
+its saved tensors (q, k, v, the output and lse), so a recompute under
+``torch.utils.checkpoint`` runs the forward again, and is counted again.
+
+Every forward call is tallied in :data:`DISPATCHES` (rows = query rows,
 ``B * Hq * T``); ``kernel_launches`` counts the calls that launched a CUDA
 kernel, and :data:`ROUTE_LAUNCHES` splits them by route (``"tc"``,
-``"simt"``; see :func:`.kernel.flash_route`).
+``"simt"``; see :func:`.kernel.flash_route`).  :data:`BWD_DISPATCHES`
+tallies the backward calls likewise; one call is three kernel launches
+(delta, dK / dV, dQ) and counts once.
 """
 from __future__ import annotations
 
@@ -18,11 +28,13 @@ from typing import Optional
 import torch
 
 from ..ledger import DispatchStats
-from .kernel import DTYPE_CODES, ROUTES, flash_attention_cuda, flash_route
-from .ref import attention_ref
+from .kernel import (DTYPE_CODES, ROUTES, flash_attention_bwd_cuda,
+                     flash_attention_cuda, flash_route)
+from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 
 DISPATCHES = DispatchStats()
 ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
+BWD_DISPATCHES = DispatchStats()
 
 
 def check_attention_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
@@ -81,14 +93,86 @@ def flash_attention(
     check_attention_inputs("flash_attention", q, k, v, window)
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, causal, window,
+                                            float(scale))
+    return _forward(q, k, v, causal, window, scale, with_lse=False)[0]
+
+
+def _forward(q, k, v, causal: bool, window: Optional[int], scale: float,
+             *, with_lse: bool):
+    """(output, lse or None): the plain version on the CPU, the kernel on
+    the card, tallied in :data:`DISPATCHES`."""
     B, Hq, T, _ = q.shape
     DISPATCHES.launches += 1
     DISPATCHES.rows += B * Hq * T
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             scale=scale)
+        out = attention_ref(q, k, v, causal=causal, window=window,
+                            scale=scale)
+        lse = (attention_lse_ref(q, k, causal=causal, window=window,
+                                 scale=scale) if with_lse else None)
+        return out, lse
+    lse = (torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     out = flash_attention_cuda(q, k, v, causal=causal, window=window,
-                               scale=float(scale))
+                               scale=float(scale), lse=lse)
     DISPATCHES.kernel_launches += 1
     ROUTE_LAUNCHES[flash_route(q.dtype, q.shape[-1])] += 1
-    return out
+    return out, lse
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    dout: torch.Tensor, lse: torch.Tensor, *, causal: bool = True,
+    window: Optional[int] = None, scale: Optional[float] = None,
+):
+    """``(dq, dk, dv)`` of :func:`flash_attention` at ``(q, k, v)``, whose
+    output was ``o`` with row log-sum-exps ``lse`` (fp32 ``[B, Hq, T]``),
+    against the output's gradient ``dout``."""
+    check_attention_inputs("flash_attention_bwd", q, k, v, window)
+    for nm, t in (("o", o), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"flash_attention_bwd: {nm} must be a contiguous "
+                f"{tuple(q.shape)} {q.dtype} tensor on {q.device}")
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(
+            "flash_attention_bwd: lse must be a contiguous fp32 "
+            f"{tuple(q.shape[:3])} tensor on {q.device}")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    B, Hq, T, _ = q.shape
+    BWD_DISPATCHES.launches += 1
+    BWD_DISPATCHES.rows += B * Hq * T
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, o, dout, lse, causal=causal,
+                                 window=window, scale=scale)
+    grads = flash_attention_bwd_cuda(q, k, v, o, dout, lse, causal=causal,
+                                     window=window, scale=float(scale))
+    BWD_DISPATCHES.kernel_launches += 1
+    return grads
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Differentiable :func:`flash_attention`: the forward kernel (with
+    lse) and the backward kernel on the card, their plain versions on the
+    CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out, lse = _forward(q, k, v, causal, window, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.attn = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, scale = ctx.attn
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, dout.contiguous(), lse, causal=causal,
+            window=window, scale=scale)
+        return dq, dk, dv, None, None, None

@@ -1,26 +1,94 @@
-"""Public Model API: init / prefill_step / decode_step.
+"""Public Model API: init / train_step / prefill_step / decode_step.
 
-PyTorch port of the serve half of :mod:`repro.models.model`; prefill
-computes logits for the final position only, so the ``[B, T, vocab]``
-tensor never materialises.  ``loss_fn``, ``train_step`` and the chunked
-cross-entropy come with the training slice of the port.
+PyTorch port of :mod:`repro.models.model`.  The cross-entropy is computed
+**chunked over the sequence** (``CE_CHUNK`` positions at a time, fp32
+``logsumexp``), so the ``[B, T, vocab]`` logits tensor never
+materialises; under autograd each chunk runs in ``torch.utils.checkpoint``
+and is recomputed in the backward, so the ``[B, CE_CHUNK, vocab]`` fp32
+logits of one chunk at a time are alive, not of all.  Prefill computes
+logits for the final position only.
+
+Training follows the JAX package's functional API (``loss_fn``,
+``grad_step``, ``train_step`` over a :class:`TrainState`), with one
+difference: ``train_step`` and :func:`~repro_torch.train.optimizer.adamw_update`
+update the parameters and moments in place and return them, where JAX
+returns new trees (at ``minitron-4b``'s width a second copy of the state
+would not fit the card).  The dense and SSM families' layers have no
+auxiliary loss (the MoE FFN, whose router adds one, is not ported), so
+``loss_fn``'s ``aux`` term is 0.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
+from ..train.optimizer import AdamWConfig, adamw_update, init_opt_state
+from ..tree import leaves, map_tree
 from .transformer import forward, init_decode_cache, init_params, lm_logits
+
+CE_CHUNK = 512
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt: Any
+    step: torch.Tensor            # int32, 0-d
+
+
+def _chunk_loss(params, cfg: ModelConfig, h: torch.Tensor, t: torch.Tensor,
+                m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    logits = lm_logits(params, cfg, h).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, t.long()[..., None])[..., 0]
+    return ((logz - gold) * m).sum(), m.sum()
+
+
+def cross_entropy(params, cfg: ModelConfig, hidden: torch.Tensor,
+                  targets: torch.Tensor, mask: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """Chunked CE over the sequence.  hidden [B,T,D], targets int[B,T]."""
+    B, T, _ = hidden.shape
+    chunk = min(CE_CHUNK, T)
+    n = T // chunk
+    if mask is None:
+        mask = torch.ones((B, T), dtype=torch.float32, device=hidden.device)
+    bounds = [(i * chunk, (i + 1) * chunk) for i in range(n)]
+    if T - n * chunk:
+        bounds.append((n * chunk, T))
+    remat = torch.is_grad_enabled()
+    total, cnt = 0.0, 0.0
+    for lo, hi in bounds:
+        args = (params, cfg, hidden[:, lo:hi], targets[:, lo:hi],
+                mask[:, lo:hi])
+        if remat:
+            l, c = checkpoint(_chunk_loss, *args, use_reentrant=False)
+        else:
+            l, c = _chunk_loss(*args)
+        total, cnt = total + l, cnt + c
+    return total / torch.clamp(cnt, min=1.0)
+
+
+def _split(batch: Dict[str, torch.Tensor], mbs: int):
+    for name, leaf in batch.items():
+        if leaf.shape[0] % mbs != 0:
+            raise ValueError(
+                f"batch {leaf.shape[0]} ({name}) not divisible by {mbs} "
+                "microbatches")
+    return [{name: leaf.reshape((mbs, leaf.shape[0] // mbs)
+                                + tuple(leaf.shape[1:]))[i]
+             for name, leaf in batch.items()} for i in range(mbs)]
 
 
 @dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
     device: torch.device
+    opt_cfg: AdamWConfig = AdamWConfig()
 
     # ------------------------------------------------------------------ init
     def init(self, seed: int = 0) -> Dict:
@@ -30,8 +98,66 @@ class Model:
         with torch.no_grad():
             return init_params(gen, self.cfg)
 
+    def init_train_state(self, seed: int = 0) -> TrainState:
+        params = self.init(seed)
+        opt = init_opt_state(params, self.opt_cfg)
+        return TrainState(params, opt,
+                          torch.zeros((), dtype=torch.int32,
+                                      device=self.device))
+
     def init_cache(self, batch: int, length: int) -> Dict:
         return init_decode_cache(self.cfg, batch, length, self.device)
+
+    # ------------------------------------------------------------ train step
+    def loss_fn(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        inp, tgt = tokens[:, :-1], tokens[:, 1:]
+        hidden, _ = forward(params, cfg, inp, mode="train",
+                            patch_embeds=batch.get("patch_embeds"),
+                            return_hidden=True)
+        ce = cross_entropy(params, cfg, hidden, tgt, batch.get("mask"))
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        return ce + 0.01 * aux
+
+    def grad_step(self, params, batch) -> Tuple[torch.Tensor, Any]:
+        """Loss + grads only (for delta-sync / accumulation drivers):
+        ``(loss, grads)``, grads a tree of ``params``' structure."""
+        live = map_tree(lambda p: p.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            loss = self.loss_fn(live, batch)
+            flat = leaves(live)
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        it = iter([g if g is not None else torch.zeros_like(p)
+                   for p, g in zip(flat, grads)])
+        return loss.detach(), map_tree(lambda _: next(it), live)
+
+    def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        mbs = self.cfg.n_microbatches
+        if mbs <= 1:
+            loss, grads = self.grad_step(state.params, batch)
+        else:
+            # gradient accumulation over microbatches, fp32 accumulators
+            gsum = map_tree(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                  device=p.device),
+                            state.params)
+            loss_sum = torch.zeros((), dtype=torch.float32,
+                                   device=self.device)
+            for mb in _split(batch, mbs):
+                l, grads = self.grad_step(state.params, mb)
+                for a, g in zip(leaves(gsum), leaves(grads)):
+                    a.add_(g.float())
+                loss_sum = loss_sum + l
+                del grads
+            loss = loss_sum / mbs
+            for a in leaves(gsum):
+                a.div_(mbs)
+            grads = gsum
+        new_params, new_opt = adamw_update(
+            grads, state.opt, state.params, self.opt_cfg)
+        metrics = {"loss": loss, "step": state.step + 1}
+        return TrainState(new_params, new_opt, state.step + 1), metrics
 
     # ------------------------------------------------------------ serve steps
     @torch.no_grad()
@@ -59,7 +185,10 @@ class Model:
         return logits, new_cache
 
 
-def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:
+def build_model(cfg: ModelConfig, device: DeviceLike = None,
+                opt_cfg: Optional[AdamWConfig] = None) -> Model:
     """The model of ``cfg`` on ``device`` (the card unless ``"cpu"``)."""
-    return Model(cfg, resolve_device(device))
+    if opt_cfg is None:
+        opt_cfg = AdamWConfig(moments=cfg.optimizer_moments)
+    return Model(cfg, resolve_device(device), opt_cfg)
 

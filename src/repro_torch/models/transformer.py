@@ -14,7 +14,11 @@ groups reads position ``i % group_len`` at index ``i // group_len``.
 
 Modes: ``train`` (logits), ``prefill`` (logits + cache), ``decode`` (one
 token + cache update, in place); the Mamba mixers of the SSM family serve
-``prefill`` and ``decode``.  Mamba mixers outside the SSM family (the
+``prefill`` and ``decode``.  In ``train`` mode under autograd, ``cfg.remat``
+wraps each layer in ``torch.utils.checkpoint`` (non-reentrant), where the
+JAX package wraps each scanned group or tail layer in ``jax.checkpoint``:
+the values are the same, only what is kept for the backward differs (a
+layer's input; the rest is recomputed).  Mamba mixers outside the SSM family (the
 hybrid), MoE FFNs and the encoder-decoder raise
 :class:`NotImplementedError`: they come with later slices of the port.  The
 vision frontend's ``patch_embeds`` (precomputed, as in the JAX package) are
@@ -26,6 +30,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import attention_forward, init_attention, init_cache
@@ -170,6 +175,13 @@ def apply_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor, mixer: str,
     return x, new_cache
 
 
+def _train_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor, mixer: str,
+                 ffn: str, positions: torch.Tensor) -> torch.Tensor:
+    """One layer in ``train`` mode (the function remat recomputes)."""
+    return apply_layer(p, cfg, x, mixer, ffn, positions=positions,
+                       mode="train", cache=None, cache_len=None)[0]
+
+
 def embed_tokens(params: Dict, cfg: ModelConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
     """``[B, T, d_model]`` token embeddings in the model dtype."""
@@ -218,7 +230,12 @@ def forward(
         x = x + learned_positions(params["embed"]["pos"], positions).to(dtype)
 
     new_caches: List[Dict] = []
+    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
     for i, (mixer, ffn) in enumerate(kinds):
+        if remat:
+            x = checkpoint(_train_layer, params["layers"][i], cfg, x, mixer,
+                           ffn, positions, use_reentrant=False)
+            continue
         lc = layer_cache(cache, cfg, i) if cache is not None else None
         x, nc = apply_layer(
             params["layers"][i], cfg, x, mixer, ffn, positions=positions,

@@ -74,11 +74,17 @@ def test_port_modules_found():
                 "models.mamba", "kernels.mamba_scan.ops",
                 "kernels.mamba_scan.kernel", "kernels.mamba_scan.ref",
                 "kernels.clock_ops", "kernels.clock_ops.ops",
-                "kernels.clock_ops.kernel", "kernels.clock_ops.ref"):
+                "kernels.clock_ops.kernel", "kernels.clock_ops.ref",
+                "tree", "train.data", "train.optimizer", "train.delta_sync",
+                "checkpoint.bigstore", "checkpoint.manager",
+                "cluster.membership", "runtime.elastic", "runtime.ft",
+                "launch.train"):
         assert f"repro_torch.{mod}" in mods
     for name in ("flash_attention", "decode_attention", "mamba_scan",
                  "clock_ops"):
         assert (PORT / "kernels" / name / "csrc" / f"{name}.cu").is_file()
+    assert (PORT / "kernels" / "flash_attention" / "csrc"
+            / "flash_attention_bwd.cu").is_file()
 
 
 def test_clock_ops_import_loads_no_jax_and_builds_nothing(tmp_path):

@@ -14,6 +14,14 @@ has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda_kernels.py
 
+The attention backward (``flash_attention_bwd.cu``) is held against its
+plain version from the same forward output and log-sum-exps (rtol 1e-4 /
+atol 1e-5 in fp32; in bf16 rtol 1.6e-2 / atol 1e-3, two bf16 steps of
+each entry, and 1e-3 of each gradient's norm), for bit-identical repeats,
+and inside the model: gradients reach ``wq`` / ``wk`` / ``wv`` on the
+card, and one ``train_step`` of the smoke ``minitron-4b`` on cuda matches
+the cpu's.
+
 Tolerances are those of the CPU tests: 2e-5 in fp32; 2e-2 (prefill) and
 3e-2 (decode) in bf16, where the plain version rounds scores and
 probabilities to bf16 and the kernel keeps them in fp32; 2e-4 for the
@@ -33,7 +41,10 @@ from repro_torch.kernels.clock_ops.kernel import staged as clock_staged
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref)
 from repro_torch.kernels.decode_attention.kernel import plan_splits
-from repro_torch.kernels.flash_attention import (ROUTE_LAUNCHES,
+from repro_torch.kernels.flash_attention import (BWD_DISPATCHES,
+                                                 ROUTE_LAUNCHES,
+                                                 attention_bwd_ref,
+                                                 attention_lse_ref,
                                                  attention_ref,
                                                  flash_attention, flash_route)
 from repro_torch.kernels.dot_seen import (DISPATCHES as DOTS, dot_seen,
@@ -495,3 +506,79 @@ def test_clock_popcount_kernel_matches_plain_on_the_card(cuda, shape):
         assert torch.equal(got, clock_ops.popcount_ref(s, e))
     if shape == "edge":
         assert int(clock_ops.popcount(DenseClock(a_s, a_e))[3]) == -15
+
+
+# ------------------------------------------------------- attention backward
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (1e-4, 1e-5, None)),
+                                       (torch.bfloat16, (1.6e-2, 1e-3, 1e-3))])
+@pytest.mark.parametrize("B,Hq,Hkv,T,S,D,window", [
+    (1, 4, 2, 128, 128, 64, None),     # causal GQA
+    (2, 4, 4, 200, 200, 128, 64),      # windowed MHA
+    (1, 8, 2, 63, 63, 128, None),      # a T that does not fill a tile
+    (1, 2, 2, 40, 20, 64, None),       # T > S: rows that see no key
+    (1, 2, 1, 65, 130, 256, None),     # D = 256 (32-row tiles)
+    (1, 4, 2, 77, 77, 16, 9),          # a narrow head and window
+])
+def test_flash_backward_kernel_matches_plain(cuda, dtype, tol, B, Hq, Hkv, T,
+                                             S, D, window):
+    g = torch.Generator(device=cuda).manual_seed(T + D)
+    q, k, v = (_normal(g, (B, h, n, D), dtype, cuda).requires_grad_()
+               for h, n in ((Hq, T), (Hkv, S), (Hkv, S)))
+    dout = _normal(g, (B, Hq, T, D), dtype, cuda)
+    launched = BWD_DISPATCHES.kernel_launches
+    out = flash_attention(q, k, v, causal=True, window=window)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    assert BWD_DISPATCHES.kernel_launches == launched + 1
+    lse = attention_lse_ref(q.detach(), k.detach(), window=window)
+    want = attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                             out.detach(), dout, lse, window=window)
+    rtol, atol, rel = tol
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.isfinite(a).all()
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=atol)
+        if rel is not None:
+            err = (a.float() - b.float()).norm() / b.float().norm()
+            assert float(err) <= rel
+    again = torch.autograd.grad(
+        flash_attention(q, k, v, causal=True, window=window), (q, k, v), dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if T > S:
+        assert torch.all(got[0][:, :, :T - S] == 0)
+
+
+def _smoke_train(cuda):
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config("minitron-4b")
+    tok = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 33))
+    return cfg, build_model, torch.as_tensor(tok, dtype=torch.int32)
+
+
+@pytest.mark.gpu
+def test_gradients_reach_the_attention_projections_on_the_card(cuda):
+    cfg, build_model, tok = _smoke_train(cuda)
+    model = build_model(cfg, cuda)
+    launched = BWD_DISPATCHES.kernel_launches
+    loss, grads = model.grad_step(model.init(0), {"tokens": tok.to(cuda)})
+    assert torch.isfinite(loss)
+    assert BWD_DISPATCHES.kernel_launches == launched + cfg.n_layers
+    for layer in grads["layers"]:
+        for name in ("wq", "wk", "wv"):
+            assert float(layer["attn"][name].abs().sum()) > 0, name
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.tree import leaves, map_tree
+    cfg, build_model, tok = _smoke_train(cuda)
+    cpu, gpu = build_model(cfg, "cpu"), build_model(cfg, cuda)
+    state = cpu.init_train_state(0)
+    gstate = map_tree(lambda t: t.to(cuda), state)
+    state, m_cpu = cpu.train_step(state, {"tokens": tok})
+    gstate, m_gpu = gpu.train_step(gstate, {"tokens": tok.to(cuda)})
+    assert float(m_gpu["loss"]) == pytest.approx(float(m_cpu["loss"]),
+                                                 abs=1e-4)
+    for a, b in zip(leaves(gstate.params), leaves(state.params)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
