@@ -14,8 +14,9 @@ Phases, each printed as it runs; any failure exits non-zero:
    ``mamba_scan``, ``clock_ops``) from the checkout's sources with ``nvcc``, one process
    per source, started together, and beside them prints what
    ``nvcc -Xptxas -v`` reports (registers, shared memory, spills) for the
-   attention kernels' tensor-core and split-KV routes, the scan,
-   ``dot_seen`` and the clock merge and popcount;
+   attention kernels' tensor-core and split-KV routes, both routes of the
+   attention backward, the scan, ``dot_seen`` and the clock merge and
+   popcount;
 3. kernels — holds each kernel against its plain PyTorch version on the
    card: ``dot_seen`` bit for bit at the bigset serve path's shape and a
    stress shape, beside an empty launch's device time (the floor a launch
@@ -82,7 +83,9 @@ Phases, each printed as it runs; any failure exits non-zero:
     log-sum-exps, and against autograd of the plain attention in fp32, at
     the training path's shape (24 over 8 heads, T = S = 4,096, D = 128,
     causal, bf16), a ``gemma3-27b`` local layer (window 1,024), MHA at
-    D = 256, T = 63 and fp32 (rtol 1e-4 / atol 1e-5 in fp32; in bf16
+    D = 256, T = 63 (bf16, all on the tensor-core route) and fp32 (the
+    SIMT route), each shape's route printed and counted (rtol 1e-4 /
+    atol 1e-5 in fp32; in bf16
     rtol 1.6e-2 / atol 1e-3 and 1e-3 in norm against the plain version,
     1e-2 in norm against autograd), with two calls bit-identical; at the
     path shape two wrong gradients (dK/dV without one query head of each
@@ -95,7 +98,8 @@ Phases, each printed as it runs; any failure exits non-zero:
     (seed 0), two simulated hosts of one 4,096-token sequence each, 4
     steps (the global batch cut from ``train_4k``'s 256 to 2); the flash
     counts are zeroed just before and read just after: every forward
-    (twice a layer under remat) and backward launched the kernels; step
+    (twice a layer under remat) and backward launched the kernels, all on
+    the tensor-core routes; step
     ms, tokens/s and ``mfu`` over the two warm unprofiled steps (2 and 3)
     with their spread, peak memory, the last step's device busy share
     from ``torch.profiler``;
@@ -173,12 +177,14 @@ def phase_device(torch):
 
 
 # The kernels of the serve paths (the attention kernels' routes, the scan,
-# dot_seen) and of the clock lattice whose registers, shared memory and
-# spills the build phase reports.
+# dot_seen), of the clock lattice and of the attention backward (both
+# routes) whose registers, shared memory and spills the build phase
+# reports.
 PTXAS_KERNELS = ("flash_attention_kernel_tc", "decode_attention_kernel_split",
                  "decode_attention_kernel_combine", "mamba_scan_kernel",
                  "dot_seen_kernel", "clock_merge_kernel",
-                 "clock_popcount_kernel", "attn_bwd_dkdv", "attn_bwd_dq")
+                 "clock_popcount_kernel", "attn_bwd_dkdv", "attn_bwd_dq",
+                 "attn_bwd_dkdv_tc", "attn_bwd_dq_tc")
 _PTXAS_TYPES = {"13__nv_bfloat16": "bf16", "f": "f32"}
 
 
@@ -1578,7 +1584,8 @@ def _wrong_bwd(torch, fa, q, k, v, out, dout, lse, window, refs,
 
 def _sdpa_bwd_ms(torch, q, k, v, dout, window, iters):
     """The backward alone of PyTorch's fused attention on the same inputs,
-    through ``torch.autograd.grad`` (a yardstick the port never calls)."""
+    through ``torch.autograd.grad`` (a yardstick the port never calls):
+    (ms, its gradients)."""
     import torch.nn.functional as F
 
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
@@ -1594,8 +1601,9 @@ def _sdpa_bwd_ms(torch, q, k, v, dout, window, iters):
             mask &= kpos > qpos - window
         out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                              enable_gqa=True)
-    return time_ms(torch, lambda: torch.autograd.grad(
-        out, (q, k, v), dout, retain_graph=True), iters, warmup=2)
+    def call():
+        return torch.autograd.grad(out, (q, k, v), dout, retain_graph=True)
+    return time_ms(torch, call, iters, warmup=2), call()
 
 
 def phase_attention_bwd(torch, fwd_path_ms):
@@ -1623,12 +1631,19 @@ def phase_attention_bwd(torch, fwd_path_ms):
         lse = torch.empty((B, Hq, T), dtype=torch.float32, device="cuda")
         out = fa.flash_attention_cuda(q, k, v, causal=True, window=w,
                                       scale=scale, lse=lse)
+        route = fa.flash_bwd_route(dtype)
+        check(route == ("tc" if s["dtype"] == "bfloat16" else "simt"),
+              f"flash_attention backward {shape}: {s['dtype']} at D = {D} "
+              f"takes the {route} route")
         before = fa.BWD_DISPATCHES.kernel_launches
+        by_route = fa.BWD_ROUTE_LAUNCHES[route]
         got = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=True,
                                      window=w)
         torch.cuda.synchronize()
-        check(fa.BWD_DISPATCHES.kernel_launches == before + 1,
-              f"flash_attention backward {shape}: not on the kernel")
+        check(fa.BWD_DISPATCHES.kernel_launches == before + 1
+              and fa.BWD_ROUTE_LAUNCHES[route] == by_route + 1,
+              f"flash_attention backward {shape}: not on the kernel's "
+              f"{route} route")
         want = fa.attention_bwd_ref(q, k, v, out, dout, lse, causal=True,
                                     window=w)
         # autograd of the plain attention, in fp32 on the same values
@@ -1657,7 +1672,12 @@ def phase_attention_bwd(torch, fwd_path_ms):
         wrong = (_wrong_bwd(torch, fa, q, k, v, out, dout, lse, w,
                             dict(plain=want, autograd=exact), s["dtype"])
                  if shape == "path" else None)
-        del exact, want, again
+        # the library's own gradients against the plain version, in norm
+        iters = 3 if shape == "path" else 5
+        lib_ms, lib = _sdpa_bwd_ms(torch, q, k, v, dout, w, iters)
+        lib_errs = {f"{name}_vs_plain": _grad_err(g, p)[1]
+                    for name, g, p in zip(("dq", "dk", "dv"), lib, want)}
+        del exact, want, again, lib
         pairs = _visible_pairs(T, S, w)
         # five products of the visible pairs; q, k, v, o, dO and lse read,
         # dq, dk, dv written once
@@ -1666,12 +1686,12 @@ def phase_attention_bwd(torch, fwd_path_ms):
             + 4 * lse.numel()
         bound_ms, bound_by = _bound(nbytes, ops, s["dtype"])
         res = dict(shape=f"B={B},Hq={Hq},Hkv={Hkv},T={T},S={S},D={D},"
-                   f"window={w}", dtype=s["dtype"], max_abs_err=max(errs),
+                   f"window={w}", dtype=s["dtype"], route=route,
+                   max_abs_err=max(errs),
                    max_abs_err_vs_fp32_autograd=max(auto_errs),
                    rel_norm_err=rel_errs,
                    bound_ms=bound_ms, bound_by=bound_by, ops=ops,
                    bytes=nbytes)
-        iters = 3 if shape == "path" else 5
         res["ms"] = time_ms(torch, lambda: fa.flash_attention_bwd(
             q, k, v, out, dout, lse, causal=True, window=w), iters, warmup=1)
         res["device_ms"] = graph_ms(torch, lambda: fa.flash_attention_bwd_cuda(
@@ -1679,9 +1699,19 @@ def phase_attention_bwd(torch, fwd_path_ms):
             iters)
         res["plain_ms"] = time_ms(torch, lambda: fa.attention_bwd_ref(
             q, k, v, out, dout, lse, causal=True, window=w), 2, warmup=1)
-        res["library_ms"] = _sdpa_bwd_ms(torch, q, k, v, dout, w, iters)
+        res["library_ms"] = lib_ms
+        res["library_rel_norm_err"] = lib_errs
         if wrong is not None:
             res["wrong_gradients_rejected"] = wrong
+            # where the device time goes: ms a call by kernel
+            by_name, _ = _trace(torch, lambda: fa.flash_attention_bwd_cuda(
+                q, k, v, out, dout, lse, causal=True, window=w, scale=scale),
+                iters)
+            names = {n: re.search(r"attn_bwd_\w+(<[^>]*>)?", n)
+                     for n in by_name}
+            res["device_ms_by_kernel"] = {
+                names[n].group(0) if names[n] else n[:60]: us / 1e3 / iters
+                for n, us in by_name.items()}
         results[shape] = res
         say(f"[kernel] flash_attention backward {shape} {s['dtype']}: "
             f"{json.dumps(res)}")
@@ -1726,15 +1756,18 @@ def _host_gb():
 
 
 def _count_attention(fa):
+    """The forward's and the backward's counts, then their launches by
+    route."""
     return (fa.DISPATCHES.snapshot(), fa.BWD_DISPATCHES.snapshot(),
-            dict(fa.ROUTE_LAUNCHES))
+            dict(fa.ROUTE_LAUNCHES), dict(fa.BWD_ROUTE_LAUNCHES))
 
 
 def _reset_attention(fa):
     fa.DISPATCHES.reset()
     fa.BWD_DISPATCHES.reset()
-    for route in fa.ROUTE_LAUNCHES:
-        fa.ROUTE_LAUNCHES[route] = 0
+    for counts in (fa.ROUTE_LAUNCHES, fa.BWD_ROUTE_LAUNCHES):
+        for route in counts:
+            counts[route] = 0
 
 
 def _trace_busy(torch, fn, what: str):
@@ -1823,7 +1856,7 @@ def phase_train(torch, np):
             losses.extend(tr.train_steps(1))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    fwd, bwd, routes = _count_attention(fa)
+    fwd, bwd, routes, bwd_routes = _count_attention(fa)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
@@ -1836,6 +1869,9 @@ def phase_train(torch, np):
           f"flash_attention forward launches {vars(fwd)} != {want_fwd}")
     check(routes == {"tc": want_fwd, "simt": 0},
           f"flash_attention launches by route {routes}")
+    check(bwd_routes == {"tc": want_bwd, "simt": 0},
+          f"flash_attention backward launches by route {bwd_routes}: every "
+          f"bf16 backward at the training shape must take the tensor cores")
     # model FLOPs: 6 x parameters x tokens, plus causal attention (4
     # flops a visible pair and head dim in the forward, twice that back)
     attn = 12 * cfg.n_layers * cfg.n_heads * cfg.head_dim \
@@ -1853,6 +1889,7 @@ def phase_train(torch, np):
         init_s=t_init, state_gb=state_gb, peak_gb=peak_gb,
         host_peak_rss_gb=_host_gb(),
         flash_forward=vars(fwd), flash_backward=vars(bwd),
+        flash_backward_routes=bwd_routes,
         expected_forward=want_fwd, expected_backward=want_bwd)
     if trace is not None:
         device_ms, wall_ms, classes = trace
@@ -1960,7 +1997,7 @@ def phase_train_parity(torch, np):
     _reset_attention(fa)
     gstate, m_gpu = gpu.train_step(gstate, {"tokens": tok.to("cuda")})
     torch.cuda.synchronize()
-    fwd, bwd, _ = _count_attention(fa)
+    fwd, bwd, _, _ = _count_attention(fa)
     check(fwd.kernel_launches == fwd.launches == cfg.n_layers
           and bwd.kernel_launches == bwd.launches == cfg.n_layers,
           f"the cuda smoke train step: forward {vars(fwd)}, "

@@ -1,9 +1,12 @@
-from .ops import (BWD_DISPATCHES, DISPATCHES, ROUTE_LAUNCHES,
-                  FlashAttentionFunction, flash_attention, flash_attention_bwd)
-from .kernel import flash_attention_bwd_cuda, flash_attention_cuda, flash_route
+from .ops import (BWD_DISPATCHES, BWD_ROUTE_LAUNCHES, DISPATCHES,
+                  ROUTE_LAUNCHES, FlashAttentionFunction, flash_attention,
+                  flash_attention_bwd)
+from .kernel import (flash_attention_bwd_cuda, flash_attention_cuda,
+                     flash_bwd_route, flash_route)
 from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 
-__all__ = ["BWD_DISPATCHES", "DISPATCHES", "ROUTE_LAUNCHES",
-           "FlashAttentionFunction", "attention_bwd_ref", "attention_lse_ref",
-           "attention_ref", "flash_attention", "flash_attention_bwd",
-           "flash_attention_bwd_cuda", "flash_attention_cuda", "flash_route"]
+__all__ = ["BWD_DISPATCHES", "BWD_ROUTE_LAUNCHES", "DISPATCHES",
+           "ROUTE_LAUNCHES", "FlashAttentionFunction", "attention_bwd_ref",
+           "attention_lse_ref", "attention_ref", "flash_attention",
+           "flash_attention_bwd", "flash_attention_bwd_cuda",
+           "flash_attention_cuda", "flash_bwd_route", "flash_route"]

@@ -15,9 +15,13 @@ from the dtype and the head dim before the launch:
 Both routes write each row's log-sum-exp when given an ``lse`` buffer
 (training); the serve path passes none.  The backward, which the JAX
 package leaves to XLA's autodiff of its jnp reference, is
-``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd_cuda`): three
-SIMT launches, delta, then dK / dV a KV tile a block, then dQ a query tile
-a block, with no atomics.
+``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd_cuda`), three
+launches with no atomics (delta, then dK / dV a KV tile a block, then dQ a
+query tile a block) on the route :func:`flash_bwd_route` picks: ``"tc"``
+(bf16, every head dim: TMA pads it with zeros to 64, 128 or 256 columns)
+runs ``attn_bwd_dkdv_tc`` and ``attn_bwd_dq_tc`` on ``wgmma``, ``"simt"``
+(fp32) the CUDA-core kernels.  The tensor-core helpers both sources share
+are in ``csrc/hopper_tc.cuh``.
 
 The source notes give the bounds.  This module builds the sources with
 ``nvcc`` at first use (see :mod:`repro_torch.kernels.build`) and launches
@@ -55,6 +59,12 @@ def flash_route(dtype: torch.dtype, head_dim: int) -> str:
     return "simt"
 
 
+def flash_bwd_route(dtype: torch.dtype) -> str:
+    """The backward a CUDA call takes: ``"tc"`` (``wgmma``) for bf16 at
+    every head dim the inputs' check admits, ``"simt"`` (exact) for fp32."""
+    return "tc" if dtype == torch.bfloat16 else "simt"
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The built kernel library (compiled on first call, then cached)."""
@@ -75,11 +85,13 @@ def library() -> ctypes.CDLL:
 def bwd_library() -> ctypes.CDLL:
     """The built backward library (compiled on first call, then cached)."""
     lib = load(BWD_SOURCE)
-    fn = lib.flash_attention_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    simt = lib.flash_attention_bwd_launch
+    tc = lib.flash_attention_bwd_tc_launch
+    for fn in (simt, tc):
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                       + [ctypes.c_float] + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -116,8 +128,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              dout: torch.Tensor, lse: torch.Tensor, *,
                              causal: bool, window: Optional[int],
                              scale: float):
-    """``(dq, dk, dv)`` on the card, in the inputs' dtype; raises if a
-    launch is refused."""
+    """``(dq, dk, dv)`` on the card, in the inputs' dtype, on the route
+    :func:`flash_bwd_route` picks; raises if a launch is refused."""
     B, Hq, T, D = q.shape
     _, Hkv, S, _ = k.shape
     dq = torch.empty_like(q)
@@ -125,13 +137,18 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dv = torch.empty_like(v)
     delta = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = bwd_library().flash_attention_bwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, Hq, Hkv, T, S, D,
-        ctypes.c_float(scale), int(causal),
-        -1 if window is None else int(window), DTYPE_CODES[q.dtype], stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, Hq, Hkv, T, S, D,
+            ctypes.c_float(scale), int(causal),
+            -1 if window is None else int(window), stream)
+    route = flash_bwd_route(q.dtype)
+    if route == "tc":
+        rc = bwd_library().flash_attention_bwd_tc_launch(*args)
+    else:
+        rc = bwd_library().flash_attention_bwd_launch(*args)
     if rc != 0:
         raise RuntimeError(
-            f"flash_attention backward CUDA launch failed: cudaError {rc}")
+            f"flash_attention backward CUDA launch ({route} route) failed: "
+            f"cudaError {rc}")
     return dq, dk, dv

@@ -19,7 +19,9 @@ Every forward call is tallied in :data:`DISPATCHES` (rows = query rows,
 kernel, and :data:`ROUTE_LAUNCHES` splits them by route (``"tc"``,
 ``"simt"``; see :func:`.kernel.flash_route`).  :data:`BWD_DISPATCHES`
 tallies the backward calls likewise; one call is three kernel launches
-(delta, dK / dV, dQ) and counts once.
+(delta, dK / dV, dQ) and counts once, and :data:`BWD_ROUTE_LAUNCHES`
+splits the launched calls by the backward's route
+(:func:`.kernel.flash_bwd_route`).
 """
 from __future__ import annotations
 
@@ -29,12 +31,13 @@ import torch
 
 from ..ledger import DispatchStats
 from .kernel import (DTYPE_CODES, ROUTES, flash_attention_bwd_cuda,
-                     flash_attention_cuda, flash_route)
+                     flash_attention_cuda, flash_bwd_route, flash_route)
 from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 
 DISPATCHES = DispatchStats()
 ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 BWD_DISPATCHES = DispatchStats()
+BWD_ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 
 def check_attention_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
@@ -153,6 +156,7 @@ def flash_attention_bwd(
     grads = flash_attention_bwd_cuda(q, k, v, o, dout, lse, causal=causal,
                                      window=window, scale=float(scale))
     BWD_DISPATCHES.kernel_launches += 1
+    BWD_ROUTE_LAUNCHES[flash_bwd_route(q.dtype)] += 1
     return grads
 
 

@@ -24,7 +24,8 @@ from repro_torch.kernels import flash_attention as fa_pkg
 from repro_torch.kernels.decode_attention.kernel import (MIN_BLOCKS,
                                                          plan_splits,
                                                          scratch_shapes)
-from repro_torch.kernels.flash_attention.kernel import flash_route
+from repro_torch.kernels.flash_attention.kernel import (flash_bwd_route,
+                                                        flash_route)
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref)
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
@@ -199,8 +200,10 @@ def test_kernel_modules_build_nothing_on_import():
     from repro_torch.kernels.flash_attention import kernel as fk
     # planning a launch is host arithmetic: it builds nothing either
     flash_route(torch.bfloat16, 128)
+    flash_bwd_route(torch.bfloat16)
     dk.scratch_shapes(4, 32, 16, 2048, 128)
     assert fk.library.cache_info().currsize == 0
+    assert fk.bwd_library.cache_info().currsize == 0
     assert dk.library.cache_info().currsize == 0
     assert fk.SOURCE.is_file() and dk.SOURCE.is_file()
 
@@ -223,6 +226,21 @@ def test_flash_route_by_dtype_and_head_dim(dtype, D, route):
     # exact SIMT kernel in fp32 (on the tensor cores fp32 would be TF32)
     assert ATTN_HEAD_DIMS == [64, 128, 256]
     assert flash_route(dtype, D) == route
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tc"),
+                                         (torch.float32, "simt")])
+@pytest.mark.parametrize("D", sorted({*ATTN_HEAD_DIMS, 8, 16, 40, 80, 248}))
+def test_flash_bwd_route_by_dtype_and_head_dim(dtype, D, route):
+    # the backward's route depends on the dtype alone: bf16 takes the tensor
+    # cores at every head dim the inputs' check admits (8..256 in steps of
+    # 8, padded with zeros to 64, 128 or 256 columns), fp32 the exact SIMT
+    # kernels; so wherever the forward takes the tensor cores, the backward
+    # does too (the training path, minitron-4b, is bf16 at head dim 128)
+    assert ATTN_HEAD_DIMS == [64, 128, 256]
+    assert flash_bwd_route(dtype) == route
+    if flash_route(dtype, D) == "tc":
+        assert route == "tc"
 
 
 @pytest.mark.parametrize("S,Hkv,B", [

@@ -83,8 +83,9 @@ def test_port_modules_found():
     for name in ("flash_attention", "decode_attention", "mamba_scan",
                  "clock_ops"):
         assert (PORT / "kernels" / name / "csrc" / f"{name}.cu").is_file()
-    assert (PORT / "kernels" / "flash_attention" / "csrc"
-            / "flash_attention_bwd.cu").is_file()
+    for name in ("flash_attention_bwd.cu", "hopper_tc.cuh"):
+        assert (PORT / "kernels" / "flash_attention" / "csrc"
+                / name).is_file()
 
 
 def test_clock_ops_import_loads_no_jax_and_builds_nothing(tmp_path):

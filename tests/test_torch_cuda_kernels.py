@@ -16,8 +16,11 @@ has only PyTorch:
 
 The attention backward (``flash_attention_bwd.cu``) is held against its
 plain version from the same forward output and log-sum-exps (rtol 1e-4 /
-atol 1e-5 in fp32; in bf16 rtol 1.6e-2 / atol 1e-3, two bf16 steps of
-each entry, and 1e-3 of each gradient's norm), for bit-identical repeats,
+atol 1e-5 in fp32 on the SIMT route; in bf16, on the tensor-core route,
+rtol 1.6e-2 / atol 1e-3, two bf16 steps of each entry, and 1e-3 of each
+gradient's norm), causal or not, windowed, with T above or below S and at
+the training path's 24 / 8 grouping over several key tiles, for
+bit-identical repeats,
 and inside the model: gradients reach ``wq`` / ``wk`` / ``wv`` on the
 card, and one ``train_step`` of the smoke ``minitron-4b`` on cuda matches
 the cpu's.
@@ -42,11 +45,13 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref)
 from repro_torch.kernels.decode_attention.kernel import plan_splits
 from repro_torch.kernels.flash_attention import (BWD_DISPATCHES,
+                                                 BWD_ROUTE_LAUNCHES,
                                                  ROUTE_LAUNCHES,
                                                  attention_bwd_ref,
                                                  attention_lse_ref,
                                                  attention_ref,
-                                                 flash_attention, flash_route)
+                                                 flash_attention,
+                                                 flash_bwd_route, flash_route)
 from repro_torch.kernels.dot_seen import (DISPATCHES as DOTS, dot_seen,
                                           dot_seen_ref)
 from repro_torch.kernels.dot_seen.kernel import plan as dot_seen_plan
@@ -512,27 +517,42 @@ def test_clock_popcount_kernel_matches_plain_on_the_card(cuda, shape):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, (1e-4, 1e-5, None)),
                                        (torch.bfloat16, (1.6e-2, 1e-3, 1e-3))])
-@pytest.mark.parametrize("B,Hq,Hkv,T,S,D,window", [
-    (1, 4, 2, 128, 128, 64, None),     # causal GQA
-    (2, 4, 4, 200, 200, 128, 64),      # windowed MHA
-    (1, 8, 2, 63, 63, 128, None),      # a T that does not fill a tile
-    (1, 2, 2, 40, 20, 64, None),       # T > S: rows that see no key
-    (1, 2, 1, 65, 130, 256, None),     # D = 256 (32-row tiles)
-    (1, 4, 2, 77, 77, 16, 9),          # a narrow head and window
+@pytest.mark.parametrize("B,Hq,Hkv,T,S,D,window,causal", [
+    pytest.param(1, 4, 2, 128, 128, 64, None, True, id="causal-gqa"),
+    pytest.param(2, 4, 4, 200, 200, 128, 64, True, id="window-mha"),
+    pytest.param(1, 8, 2, 63, 63, 128, None, True, id="ragged-T"),
+    pytest.param(1, 2, 2, 40, 20, 64, None, True, id="T-over-S"),
+    pytest.param(1, 2, 1, 65, 130, 256, None, True, id="D256"),
+    pytest.param(1, 4, 2, 77, 77, 16, 9, True, id="narrow-window"),
+    pytest.param(1, 4, 2, 130, 100, 64, None, False, id="not-causal"),
+    pytest.param(1, 4, 2, 70, 300, 128, None, True, id="T-under-S-tail"),
+    pytest.param(1, 24, 8, 512, 512, 128, None, True,
+                 id="train-grouping-24-8"),
+    # head dims below a block of columns: zeros pad them to 64 / 128
+    pytest.param(1, 4, 2, 96, 96, 8, None, True, id="D8"),
+    pytest.param(1, 4, 2, 130, 130, 40, 50, True, id="D40-window"),
+    pytest.param(1, 6, 2, 100, 160, 80, None, True, id="D80-T-under-S"),
 ])
 def test_flash_backward_kernel_matches_plain(cuda, dtype, tol, B, Hq, Hkv, T,
-                                             S, D, window):
+                                             S, D, window, causal):
     g = torch.Generator(device=cuda).manual_seed(T + D)
     q, k, v = (_normal(g, (B, h, n, D), dtype, cuda).requires_grad_()
                for h, n in ((Hq, T), (Hkv, S), (Hkv, S)))
     dout = _normal(g, (B, Hq, T, D), dtype, cuda)
     launched = BWD_DISPATCHES.kernel_launches
-    out = flash_attention(q, k, v, causal=True, window=window)
+    route = flash_bwd_route(dtype)
+    by_route = BWD_ROUTE_LAUNCHES[route]
+    out = flash_attention(q, k, v, causal=causal, window=window)
     got = torch.autograd.grad(out, (q, k, v), dout)
     assert BWD_DISPATCHES.kernel_launches == launched + 1
-    lse = attention_lse_ref(q.detach(), k.detach(), window=window)
+    assert BWD_ROUTE_LAUNCHES[route] == by_route + 1
+    # bf16 takes the tensor cores at every head dim here, fp32 the SIMT
+    assert route == ("tc" if dtype == torch.bfloat16 else "simt")
+    lse = attention_lse_ref(q.detach(), k.detach(), causal=causal,
+                            window=window)
     want = attention_bwd_ref(q.detach(), k.detach(), v.detach(),
-                             out.detach(), dout, lse, window=window)
+                             out.detach(), dout, lse, causal=causal,
+                             window=window)
     rtol, atol, rel = tol
     for a, b in zip(got, want):
         assert a.dtype == dtype and torch.isfinite(a).all()
@@ -541,9 +561,10 @@ def test_flash_backward_kernel_matches_plain(cuda, dtype, tol, B, Hq, Hkv, T,
             err = (a.float() - b.float()).norm() / b.float().norm()
             assert float(err) <= rel
     again = torch.autograd.grad(
-        flash_attention(q, k, v, causal=True, window=window), (q, k, v), dout)
+        flash_attention(q, k, v, causal=causal, window=window), (q, k, v),
+        dout)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
-    if T > S:
+    if causal and T > S:  # the first T - S rows see no key
         assert torch.all(got[0][:, :, :T - S] == 0)
 
 
