@@ -23,7 +23,8 @@ Phases, each printed as it runs; any failure exits non-zero:
    can reach); ``flash_attention`` (bf16 on its tensor-core route, fp32
    on its SIMT route) and ``decode_attention`` (split-KV) in bf16 and fp32
    at the model serve path's shapes (global and local layers: a window of
-   1,024 in prefill, a ring of 1,024 slots in decode) and a stress shape
+   1,024 in prefill, a ring of 1,024 slots in decode), the MoE serve
+   paths' (16 over 8 heads of 64, 48 over 8 of 128) and a stress shape
    (head dim 256, MHA, ragged lengths), within the CPU tests' tolerances.
    It times the wrapper and the device (a CUDA graph of launches) with
    CUDA events, the plain version, and, beside each attention kernel,
@@ -78,12 +79,28 @@ Phases, each printed as it runs; any failure exits non-zero:
 10. SSM parity — the smoke ``falcon-mamba-7b`` (fp32) on ``cpu`` and on
     ``cuda``: identical greedy token streams and logits within 1e-4; in
     bf16 (its scans read bf16), logits within 2e-2;
-11. attention backward — the backward kernel (``flash_attention_bwd.cu``)
+11. MoE model — the MoE serve path: the full 24-layer
+    ``granite-moe-1b-a400m`` (32 experts, top 8) in bf16 with random
+    weights (seed 0) through the same engine and six prompts, with the
+    same launch checks as the model phase, the share of token-slots that
+    capacity dropped in each prefill (decode must drop none) and peak
+    memory;
+12. grok model — ``grok-1-314b`` at full width (d_model 6,144, 48 over 8
+    heads of 128, 8 experts top 2 of d_ff 32,768, its int8 KV cache) with
+    its depth cut from 64 to 6 layers (60.7 GB of bf16 weights), after
+    every earlier model is freed, through the same engine and prompts;
+    every decode step reads the dequantised int8 cache through the decode
+    kernel;
+13. MoE parity — the smoke ``granite-moe-1b-a400m`` and the smoke
+    ``grok-1-314b`` (fp32; grok's int8 cache kept) on ``cpu`` and on
+    ``cuda``: identical greedy streams and logits within 1e-4;
+14. attention backward — the backward kernel (``flash_attention_bwd.cu``)
     against its plain version from the same forward output and
     log-sum-exps, and against autograd of the plain attention in fp32, at
     the training path's shape (24 over 8 heads, T = S = 4,096, D = 128,
     causal, bf16), a ``gemma3-27b`` local layer (window 1,024), MHA at
-    D = 256, T = 63 (bf16, all on the tensor-core route) and fp32 (the
+    D = 256, T = 63, the MoE training shape (16 over 8 heads, T = 4,096,
+    D = 64) (bf16, all on the tensor-core route) and fp32 (the
     SIMT route), each shape's route printed and counted (rtol 1e-4 /
     atol 1e-5 in fp32; in bf16
     rtol 1.6e-2 / atol 1e-3 and 1e-3 in norm against the plain version,
@@ -93,7 +110,7 @@ Phases, each printed as it runs; any failure exits non-zero:
     high) must fail both checks; device, wrapper, plain
     and SDPA backward ms beside the bound; then the forward at the serve
     shape of the attention phase with and without the log-sum-exp output;
-12. train — the training path: ``FTTrainer`` on the full 32-layer
+15. train — the training path: ``FTTrainer`` on the full 32-layer
     ``minitron-4b`` (bf16, fp32 AdamW moments, remat) with random weights
     (seed 0), two simulated hosts of one 4,096-token sequence each, 4
     steps (the global batch cut from ``train_4k``'s 256 to 2); the flash
@@ -103,22 +120,34 @@ Phases, each printed as it runs; any failure exits non-zero:
     ms, tokens/s and ``mfu`` over the two warm unprofiled steps (2 and 3)
     with their spread, peak memory, the last step's device busy share
     from ``torch.profiler``;
-13. fault tolerance — at full width and 2 layers, ``test_ft.py``'s
+16. MoE train — the same on the full ``granite-moe-1b-a400m`` (bf16, fp32
+    AdamW moments, remat): ``mfu`` counts the parameters a token reaches
+    (``ModelConfig.n_active_params``), checked against a count of the
+    held leaves; the profiled step's device time by class (attention
+    kernels, matmuls, the MoE dispatch: top-k, sort, searchsorted,
+    scatters and gathers);
+17. fault tolerance — at full width and 2 layers, ``test_ft.py``'s
     crash-restore flow at 4,096 tokens: train, checkpoint, a checkpoint
     host crashes, a restarted fleet restores from the surviving replicas
     and continues, with losses equal to an uninterrupted run's within
     rtol 1e-5; save and restore seconds, the store's bytes, peak RSS;
-14. train parity — one ``train_step`` of the smoke ``minitron-4b`` (fp32)
+18. train parity — one ``train_step`` of the smoke ``minitron-4b`` (fp32)
     from one state on ``cpu`` and on ``cuda``: loss within 1e-4,
-    parameters within rtol 1e-4 / atol 1e-5.
+    parameters within rtol 1e-4 / atol 1e-5;
+19. MoE train parity — the same for the smoke ``granite-moe-1b-a400m``,
+    then two of its ``grad_step``s on ``cuda`` under the trainer's
+    enforced deterministic algorithms, whose gradients must be bit-equal.
 
 Each phase prints its seconds (``[time]``).  The line before the last is
-one JSON object with every kernel's numbers; the last line is
+one JSON object with every kernel's numbers (the attention kernels'
+launches summed over the serve and training paths, with each path's
+count beside); the last line is
 ``{"ok": true, "device": {...}}``.  The script imports
 neither ``jax`` nor the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -438,11 +467,15 @@ def phase_kernels(torch, np):
 # heads, head dim 128): a prefill of 1,536 tokens in a global layer and in
 # a local one (window 1,024), and a decode step of 4 rows of a 2,048-slot
 # cache with ragged lengths and of a local layer's 1,024-slot ring.  The
-# stress shapes take head dim 256, MHA and ragged lengths.
+# MoE serve paths' shapes: granite-moe-1b-a400m's 16 over 8 heads of 64 and
+# grok-1-314b's 48 over 8 heads of 128.  The stress shapes take head dim
+# 256, MHA and ragged lengths.
 FLASH_SHAPES = {
     "path": dict(B=1, Hq=32, Hkv=16, T=1536, S=1536, D=128, window=None),
     "path-local": dict(B=1, Hq=32, Hkv=16, T=1536, S=1536, D=128,
                        window=1024),
+    "path-moe": dict(B=1, Hq=16, Hkv=8, T=1536, S=1536, D=64, window=None),
+    "path-grok": dict(B=1, Hq=48, Hkv=8, T=1536, S=1536, D=128, window=None),
     "stress": dict(B=2, Hq=8, Hkv=8, T=777, S=1000, D=256, window=None),
 }
 DECODE_SHAPES = {
@@ -451,6 +484,10 @@ DECODE_SHAPES = {
     # a local layer's ring of 1,024 slots, the same rows' lengths clamped
     "path-local": dict(B=4, Hq=32, Hkv=16, S=1024, D=128, window=None,
                        lens=[1024, 1024, 9, 700]),
+    "path-moe": dict(B=4, Hq=16, Hkv=8, S=2048, D=64, window=None,
+                     lens=[1537, 1281, 9, 700]),
+    "path-grok": dict(B=4, Hq=48, Hkv=8, S=2048, D=128, window=None,
+                      lens=[1537, 1281, 9, 700]),
     "stress": dict(B=3, Hq=8, Hkv=8, S=4096, D=256, window=1000,
                    lens=[1, 2500, 4096]),
 }
@@ -1098,6 +1135,13 @@ def _trace(torch, fn, n: int):
     return by_name, wall
 
 
+# the MoE dispatch's kernels (top-k, the stable sort, searchsorted, the
+# rank and inverse scatters, the row gathers both ways); the embedding's
+# and the cross-entropy's gathers fall in this class too
+DISPATCH_NAMES = ("topk", "radix", "sort", "scatter", "gather",
+                  "indexselect", "index_select", "index_elementwise")
+
+
 def _kernel_class(name: str) -> str:
     for kernel in ("flash_attention", "decode_attention", "mamba_scan"):
         if f"{kernel}_kernel" in name:
@@ -1107,6 +1151,8 @@ def _kernel_class(name: str) -> str:
     low = name.lower()
     if any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass", "splitk")):
         return "matmul"
+    if any(s in low for s in DISPATCH_NAMES):
+        return "dispatch"
     return "other"
 
 
@@ -1172,17 +1218,21 @@ def _leaves(tree):
         yield tree
 
 
-def serve_full_model(torch, np, arch: str, ledgers, routes=None):
-    """Serve the six prompts on the full ``arch`` in bf16 with random
-    weights through ``ServeEngine``, with ``ledgers`` (name -> the kernel
-    wrappers' ``DISPATCHES``) and ``routes`` (a wrapper's launches by
-    route) zeroed just before and read just after.
+def serve_full_model(torch, np, arch: str, ledgers, routes=None,
+                     n_layers=None, during=None):
+    """Serve the six prompts on the full ``arch`` (its depth cut to
+    ``n_layers`` where given) in bf16 with random weights through
+    ``ServeEngine``, with ``ledgers`` (name -> the kernel wrappers'
+    ``DISPATCHES``) and ``routes`` (a wrapper's launches by route) zeroed
+    just before and read just after, and the serving loop inside the
+    context ``during`` where given.
 
     Checks that every request is served in full, every token is in the
     vocabulary, every logit is finite and every dispatch launched the CUDA
     kernel; prints the path's metrics and a profile, then frees the model
     and the engine.  Returns (config, requests, decode steps, counts,
-    launches by route)."""
+    launches by route, the path's metrics)."""
+    import dataclasses
     import gc
 
     from repro_torch.configs import get_config
@@ -1190,6 +1240,11 @@ def serve_full_model(torch, np, arch: str, ledgers, routes=None):
     from repro_torch.serve import ServeEngine
 
     cfg = get_config(arch)
+    cut = ""
+    if n_layers is not None:
+        cut = f" (depth cut from {cfg.n_layers})"
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model(cfg, "cuda")
     params = model.init(0)
@@ -1197,9 +1252,10 @@ def serve_full_model(torch, np, arch: str, ledgers, routes=None):
     t_init = time.perf_counter() - t0
     n_params = sum(x.numel() for x in _leaves(params))
     weight_bytes = sum(x.numel() * x.element_size() for x in _leaves(params))
-    say(f"[model {arch}] {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    say(f"[model {arch}] {cfg.n_layers} layers{cut}, d_model {cfg.d_model}, "
         f"{n_params} parameters, {weight_bytes / 1e9:.3f} GB of {cfg.dtype} "
-        f"weights, drawn on the card in {t_init:.3f}s")
+        f"weights, drawn on the card in {t_init:.3f}s (peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB while drawing)")
 
     torch.cuda.reset_peak_memory_stats()
     eng = ServeEngine(cfg, params, max_batch=MODEL_MAX_BATCH,
@@ -1216,9 +1272,10 @@ def serve_full_model(torch, np, arch: str, ledgers, routes=None):
         routes[route] = 0
     t0 = time.perf_counter()
     decode_tokens = 0
-    while eng.queue or any(s is not None for s in eng.slots):
-        decode_tokens += eng.step()
-    torch.cuda.synchronize()
+    with during if during is not None else contextlib.nullcontext():
+        while eng.queue or any(s is not None for s in eng.slots):
+            decode_tokens += eng.step()
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {name: ledger.snapshot() for name, ledger in ledgers.items()}
     route_counts = dict(routes)
@@ -1243,6 +1300,8 @@ def serve_full_model(torch, np, arch: str, ledgers, routes=None):
         # a decode step reads every weight once
         weight_read_floor_ms=weight_bytes / PEAK_BYTES_PER_S * 1e3,
         n_params=n_params, weight_gb=weight_bytes / 1e9, peak_gb=peak / 1e9,
+        cache_dtypes=sorted({str(t.dtype).removeprefix("torch.")
+                             for t in _leaves(eng.cache)}),
         **{name: vars(c) for name, c in counts.items()},
         **({"routes": route_counts} if route_counts else {}))
     say(f"[model {arch}] served: {json.dumps(stats)}")
@@ -1256,23 +1315,26 @@ def serve_full_model(torch, np, arch: str, ledgers, routes=None):
     torch.cuda.empty_cache()
     say(f"[model {arch}] freed: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
         f"still allocated")
-    return cfg, n_reqs, steps, counts, route_counts
+    return cfg, n_reqs, steps, counts, route_counts, stats
 
 
-def phase_model(torch, np):
+def serve_attention_model(torch, np, arch: str, n_layers=None, during=None):
+    """``serve_full_model`` on an attention model: every prefill on the
+    flash kernel's tensor-core route (bf16, head dim a multiple of 16),
+    one flash launch a layer and prompt, one decode launch a layer and
+    step.  Returns (config, requests, decode steps, the flash and decode
+    counts, the path's metrics)."""
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
 
-    cfg, n_reqs, steps, counts, routes = serve_full_model(
-        torch, np, MODEL_ARCH, {"flash": fa.DISPATCHES,
-                                "decode": dec.DISPATCHES},
-        routes=fa.ROUTE_LAUNCHES)
+    cfg, n_reqs, steps, counts, routes, stats = serve_full_model(
+        torch, np, arch, {"flash": fa.DISPATCHES, "decode": dec.DISPATCHES},
+        routes=fa.ROUTE_LAUNCHES, n_layers=n_layers, during=during)
     flash, decode = counts["flash"], counts["decode"]
-    # bf16 at head dim 128: every prefill on the tensor-core route; decode
-    # has the split-KV kernels alone, so a launch of its kernel is one
+    # decode has the split-KV kernels alone, so a launch of its kernel is one
     check(routes == {"tc": flash.launches, "simt": 0},
           f"flash_attention launches by route {routes}: every bf16 "
-          f"{MODEL_ARCH} prefill must take the tensor-core route")
+          f"{arch} prefill must take the tensor-core route")
     check(flash.kernel_launches == flash.launches
           and decode.kernel_launches == decode.launches,
           "an attention dispatch missed its CUDA kernel")
@@ -1282,13 +1344,18 @@ def phase_model(torch, np):
     check(decode.launches == cfg.n_layers * steps,
           f"decode_attention dispatches {decode.launches} != "
           f"{cfg.n_layers} x {steps} steps")
+    return cfg, n_reqs, steps, flash, decode, stats
+
+
+def phase_model(torch, np):
+    _, _, _, flash, decode, _ = serve_attention_model(torch, np, MODEL_ARCH)
     return flash, decode
 
 
 def phase_ssm_model(torch, np):
     from repro_torch.kernels import mamba_scan as ms
 
-    cfg, n_reqs, _, counts, dtypes = serve_full_model(
+    cfg, n_reqs, _, counts, dtypes, _ = serve_full_model(
         torch, np, SSM_ARCH, {"mamba_scan": ms.DISPATCHES},
         routes=ms.DTYPE_LAUNCHES)
     scans = counts["mamba_scan"]
@@ -1322,7 +1389,7 @@ def _serve_smoke(np, cfg, params, device: str):
     return [r.out_tokens for r in reqs]
 
 
-def smoke_parity(torch, np, arch: str, ledgers):
+def smoke_parity(torch, np, arch: str, ledgers, shrink_embed=False):
     """The smoke ``arch`` in fp32, served on cpu and on cuda; every
     dispatch of ``ledgers`` in the cuda run must launch the kernel."""
     from repro_torch.configs import smoke_config
@@ -1334,10 +1401,11 @@ def smoke_parity(torch, np, arch: str, ledgers):
     cfg = smoke_config(arch)
     cpu_model = build_model(cfg, "cpu")
     params = cpu_model.init(0)
-    if cfg.scale_embeddings:
-        # at random init the scaled embedding dominates the residual stream
-        # and greedy decoding repeats the prompt's last token whatever the
-        # layers do; a smaller embedding makes the streams depend on them
+    if cfg.scale_embeddings or shrink_embed:
+        # at random init the (scaled, or tied) embedding dominates the
+        # residual stream and greedy decoding repeats the prompt's last
+        # token whatever the layers do; a smaller embedding makes the
+        # streams depend on them
         params["embed"]["tok"] *= 0.05
     gpu_params = tree_to(params, "cuda")
 
@@ -1487,11 +1555,106 @@ def phase_vlm_parity(torch, np):
         f"logits move by {moved:.3g}")
 
 
+# -------------------------------------------------------------- MoE paths
+MOE_ARCH = "granite-moe-1b-a400m"
+GROK_ARCH = "grok-1-314b"
+# grok-1-314b's depth cut from 64 layers: a layer holds 4.92 B parameters
+# (9.84 GB in bf16) and the tied table 0.81 B, so 6 layers are 60.7 GB
+GROK_LAYERS = 6
+
+
+@contextlib.contextmanager
+def recorded_routing(records):
+    """Every MoE layer's routing while inside, appended to ``records`` as
+    (tokens a row, which token-slots were kept): kept as they are, on the
+    card, so that recording launches nothing."""
+    from repro_torch.models import mlp
+
+    route = mlp.route
+
+    def recording(p, cfg, x, capacity):
+        r = route(p, cfg, x, capacity)
+        records.append((x.shape[1], r.keep))
+        return r
+
+    mlp.route = recording
+    try:
+        yield records
+    finally:
+        mlp.route = route
+
+
+def serve_moe_model(torch, np, arch: str, n_layers=None):
+    """``serve_attention_model`` on an MoE model, with the share of
+    token-slots each prefill dropped over its experts' capacity (over its
+    MoE layers).  A decode step routes one token a row, which takes each
+    expert at most once, so it drops none."""
+    from repro_torch.models.mlp import capacity
+
+    records = []
+    cfg, n_reqs, steps, flash, decode, stats = serve_attention_model(
+        torch, np, arch, n_layers=n_layers, during=recorded_routing(records))
+    n_moe = sum(cfg.layer_kind(i)[1] == "moe" for i in range(cfg.n_layers))
+    prefills = [r for r in records if r[0] > 1]
+    decodes = [r for r in records if r[0] == 1]
+    check(len(prefills) == n_moe * n_reqs and len(decodes) == n_moe * steps,
+          f"{arch}: {len(prefills)} prefill and {len(decodes)} decode "
+          f"routings, not {n_moe} x {n_reqs} and {n_moe} x {steps}")
+    drops = []
+    for i in range(n_reqs):
+        group = prefills[i * n_moe:(i + 1) * n_moe]
+        T = group[0][0]
+        dropped = sum(int((~keep).sum()) for _, keep in group)
+        drops.append(dict(prompt_tokens=T, capacity=capacity(cfg, T),
+                          dropped_share=dropped / sum(
+                              keep.numel() for _, keep in group)))
+    decode_dropped = sum(int((~keep).sum()) for _, keep in decodes)
+    check(decode_dropped == 0,
+          f"{arch}: decode dropped {decode_dropped} token-slots")
+    say(f"[model {arch}] capacity drops by prefill ({n_moe} MoE layers, "
+        f"{cfg.n_experts} experts, top {cfg.experts_per_token}, capacity "
+        f"factor {cfg.capacity_factor}): {json.dumps(drops)}; decode: 0 of "
+        f"{sum(keep.numel() for _, keep in decodes)} token-slots dropped")
+    return cfg, flash, decode, stats
+
+
+def phase_moe_model(torch, np):
+    _, flash, decode, _ = serve_moe_model(torch, np, MOE_ARCH)
+    return flash, decode
+
+
+def phase_grok_model(torch, np):
+    """grok-1-314b at full width with its depth cut to ``GROK_LAYERS``,
+    after every earlier model is freed; its decode steps read the int8
+    cache, dequantised, through the decode kernel."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[model {GROK_ARCH}] {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+        f"allocated before the model is drawn")
+    cfg, flash, decode, stats = serve_moe_model(torch, np, GROK_ARCH,
+                                                n_layers=GROK_LAYERS)
+    check(cfg.kv_cache_dtype == "int8" and "int8" in stats["cache_dtypes"],
+          f"{GROK_ARCH}: the cache holds {stats['cache_dtypes']}, no int8")
+    return flash, decode
+
+
+def phase_moe_parity(torch, np):
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+
+    for arch in (MOE_ARCH, GROK_ARCH):
+        smoke_parity(torch, np, arch, [fa.DISPATCHES, dec.DISPATCHES],
+                     shrink_embed=True)
+
+
 # --------------------------------------------------- attention backward
 # The training path's shape (minitron-4b: 24 query over 8 KV heads, head
 # dim 128, one 4,096-token sequence, causal, bf16), a local layer of
 # gemma3-27b (32 over 16 heads, window 1,024), gemma-7b's MHA at head dim
-# 256, a T that does not fill a tile, and fp32.
+# 256, a T that does not fill a tile, the MoE training path's shape
+# (granite-moe-1b-a400m: 16 over 8 heads of 64, 4,096 tokens), and fp32.
 BWD_SHAPES = {
     "path": dict(B=1, Hq=24, Hkv=8, T=4096, S=4096, D=128, window=None,
                  dtype="bfloat16"),
@@ -1501,6 +1664,8 @@ BWD_SHAPES = {
                     dtype="bfloat16"),
     "ragged": dict(B=1, Hq=24, Hkv=8, T=63, S=63, D=128, window=None,
                    dtype="bfloat16"),
+    "moe-path": dict(B=1, Hq=16, Hkv=8, T=4096, S=4096, D=64, window=None,
+                     dtype="bfloat16"),
     "fp32": dict(B=1, Hq=24, Hkv=8, T=1024, S=1024, D=128, window=None,
                  dtype="float32"),
 }
@@ -1772,8 +1937,9 @@ def _reset_attention(fa):
 
 def _trace_busy(torch, fn, what: str):
     """Run ``fn`` once (no warm-up call) under ``torch.profiler``: (device
-    ms, wall ms, device ms by kernel class), or None when the profiler
-    fails to start or to stop.  A failure of ``fn`` itself propagates."""
+    ms, wall ms, device ms by kernel class, the ten kernels of most device
+    ms), or None when the profiler fails to start or to stop.  A failure
+    of ``fn`` itself propagates."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1797,27 +1963,58 @@ def _trace_busy(torch, fn, what: str):
             prof = None
     if prof is None:
         return None
-    classes = {}
+    classes, by_name = {}, {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
+            ms = ev.time_range.elapsed_us() / 1e3
             c = _kernel_class(ev.name)
-            classes[c] = classes.get(c, 0.0) + ev.time_range.elapsed_us() / 1e3
-    return sum(classes.values()), wall * 1e3, classes
+            classes[c] = classes.get(c, 0.0) + ms
+            by_name[ev.name[:80]] = by_name.get(ev.name[:80], 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return sum(classes.values()), wall * 1e3, classes, top
+
+
+def _reached_params(cfg, params) -> int:
+    """The held parameters a token reaches: all but the ``E - K`` experts
+    of each MoE layer that it is not routed to."""
+    from repro_torch.tree import leaves
+
+    n = sum(t.numel() for t in leaves(params))
+    if cfg.n_experts:
+        E, K = cfg.n_experts, cfg.experts_per_token
+        n -= sum(layer["ffn"][name].numel() * (E - K) // E
+                 for layer in params["layers"] if "router" in layer["ffn"]
+                 for name in ("e_gate", "e_up", "e_down"))
+    return n
 
 
 def phase_train(torch, np):
     """The training path: ``FTTrainer`` on the full ``minitron-4b`` (32
-    layers, d_model 3072, bf16, fp32 AdamW moments, remat) with random
-    weights from seed 0, two simulated hosts of one 4,096-token sequence
-    each, 4 steps (rates over the two warm unprofiled ones); every
-    attention forward and backward on the kernels."""
+    layers, d_model 3072, bf16, fp32 AdamW moments, remat)."""
+    return train_full_model(torch, np, TRAIN_ARCH)
+
+
+def phase_moe_train(torch, np):
+    """The MoE training path: ``FTTrainer`` on the full
+    ``granite-moe-1b-a400m`` (24 layers, d_model 1024, 32 experts top 8,
+    bf16, fp32 AdamW moments, remat)."""
+    return train_full_model(torch, np, MOE_ARCH)
+
+
+def train_full_model(torch, np, arch: str):
+    """``FTTrainer`` on the full ``arch`` with random weights from seed 0,
+    two simulated hosts of one 4,096-token sequence each, 4 steps (rates
+    over the two warm unprofiled ones); every attention forward and
+    backward on the kernels.  ``mfu`` counts the parameters a token
+    reaches (``ModelConfig.n_active_params``: an MoE layer's routed
+    experts only), held against a count of the held leaves."""
     import gc
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.runtime.ft import FTConfig, FTTrainer
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     ft = FTConfig(n_hosts=2, global_batch=2, seq_len=4096,
                   ckpt_every=TRAIN_STEPS + 1)
     tokens = ft.global_batch * ft.seq_len
@@ -1829,16 +2026,25 @@ def phase_train(torch, np):
     state_gb = torch.cuda.memory_allocated() / 1e9
     from repro_torch.tree import leaves
     n = sum(t.numel() for t in leaves(tr.state.params))
+    reached = _reached_params(cfg, tr.state.params)
+    active = cfg.n_active_params()
+    # (ModelConfig counts three FFN matrices, where relu2 holds two: the
+    # counts agree for the gated MoE models, not for minitron-4b)
+    check(not cfg.n_experts or abs(reached - active) <= 1e-3 * active,
+          f"{arch}: a token reaches {reached} held parameters, "
+          f"ModelConfig.n_active_params() says {active}")
     # reckoned before the first step: bf16 parameters, fp32 m and v, the
     # running gradient sum and one host's fresh gradients (bf16 each)
     reckoned = dict(params_gb=2 * n / 1e9, moments_gb=8 * n / 1e9,
                     grad_sum_gb=2 * n / 1e9, fresh_grads_gb=2 * n / 1e9)
     reckoned["total_gb_before_activations"] = sum(reckoned.values())
-    say(f"[train {TRAIN_ARCH}] {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    say(f"[train {arch}] {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
         f"{cfg.d_ff} ({cfg.hidden_act}), vocab {cfg.vocab_size} tied, "
         f"{cfg.dtype}, {cfg.optimizer_moments} moments, remat={cfg.remat}; "
-        f"{n} parameters held (ModelConfig.n_params: {cfg.n_params()}); "
+        f"{n} parameters held (ModelConfig.n_params: {cfg.n_params()}), "
+        f"{reached} of them reached by a token (n_active_params: "
+        f"{active}); "
         f"global batch cut from train_4k's 256 to "
         f"{ft.global_batch} ({ft.n_hosts} hosts x 1 x {ft.seq_len} tokens); "
         f"reckoned: {json.dumps(reckoned)}")
@@ -1851,7 +2057,7 @@ def phase_train(torch, np):
         t0 = time.perf_counter()
         if i == TRAIN_STEPS - 1:
             trace = _trace_busy(torch, lambda: losses.extend(
-                tr.train_steps(1)), f"[train {TRAIN_ARCH}]")
+                tr.train_steps(1)), f"[train {arch}]")
         else:
             losses.extend(tr.train_steps(1))
         torch.cuda.synchronize()
@@ -1860,7 +2066,7 @@ def phase_train(torch, np):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
-          f"{TRAIN_ARCH} training losses {losses}")
+          f"{arch} training losses {losses}")
     want_bwd = cfg.n_layers * ft.n_hosts * TRAIN_STEPS
     want_fwd = 2 * want_bwd if cfg.remat else want_bwd
     check(bwd.launches == bwd.kernel_launches == want_bwd,
@@ -1873,16 +2079,18 @@ def phase_train(torch, np):
           f"flash_attention backward launches by route {bwd_routes}: every "
           f"bf16 backward at the training shape must take the tensor cores")
     # model FLOPs: 6 x parameters x tokens, plus causal attention (4
-    # flops a visible pair and head dim in the forward, twice that back)
+    # flops a visible pair and head dim in the forward, twice that back);
+    # an MoE model counts the parameters a token reaches
     attn = 12 * cfg.n_layers * cfg.n_heads * cfg.head_dim \
         * _visible_pairs(ft.seq_len, ft.seq_len, None) * ft.global_batch
-    flops = 6 * n * tokens + attn
+    flops = 6 * (active if cfg.n_experts else n) * tokens + attn
     timed = step_ms[1:-1]  # warm and unprofiled
     warm = sum(timed) / len(timed)
     stats = dict(
         steps=TRAIN_STEPS, losses=losses, step_ms=step_ms,
         traced_step=TRAIN_STEPS, timed_steps=len(timed), warm_step_ms=warm,
         warm_step_ms_spread=[min(timed), max(timed)], n_params=n,
+        n_params_reached=reached, n_active_params=active,
         tokens_per_step=tokens, tokens_per_s=tokens / warm * 1e3,
         model_flops_per_step=flops,
         mfu=flops / (warm / 1e3) / PEAK_BF16_OPS_PER_S,
@@ -1892,11 +2100,11 @@ def phase_train(torch, np):
         flash_backward_routes=bwd_routes,
         expected_forward=want_fwd, expected_backward=want_bwd)
     if trace is not None:
-        device_ms, wall_ms, classes = trace
+        device_ms, wall_ms, classes, top = trace
         stats.update(traced_device_ms=device_ms, traced_wall_ms=wall_ms,
                      device_busy_share=device_ms / wall_ms,
-                     device_ms_by_class=classes)
-    say(f"[train {TRAIN_ARCH}] trained: {json.dumps(stats)}")
+                     device_ms_by_class=classes, top_kernels_ms=top)
+    say(f"[train {arch}] trained: {json.dumps(stats)}")
     del tr
     gc.collect()
     torch.cuda.empty_cache()
@@ -1977,17 +2185,21 @@ def phase_ft(torch, np):
 
 
 def phase_train_parity(torch, np):
-    """One ``train_step`` of the smoke ``minitron-4b`` (fp32) from the same
-    state on cpu and on cuda: the loss within 1e-4, every parameter after
-    the step within rtol 1e-4 / atol 1e-5; the cuda step's attention on
-    the kernels."""
+    train_parity(torch, np, TRAIN_ARCH)
+
+
+def train_parity(torch, np, arch: str):
+    """One ``train_step`` of the smoke ``arch`` (fp32) from the same state
+    on cpu and on cuda: the loss within 1e-4, every parameter after the
+    step within rtol 1e-4 / atol 1e-5; the cuda step's attention on the
+    kernels."""
     from repro_torch.configs import smoke_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import build_model
     from repro_torch.tree import leaves, map_tree
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = smoke_config(TRAIN_ARCH)
+    cfg = smoke_config(arch)
     cpu, gpu = build_model(cfg, "cpu"), build_model(cfg, "cuda")
     state = cpu.init_train_state(0)
     gstate = map_tree(lambda t: t.to("cuda"), state)
@@ -2011,10 +2223,45 @@ def phase_train_parity(torch, np):
         errs.append(float((a - b).abs().max()))
         check(bool(((a - b).abs() <= 1e-5 + 1e-4 * b.abs()).all()),
               f"a parameter after the train step differs by {errs[-1]}")
-    say(f"[train parity] smoke {TRAIN_ARCH} fp32, one train_step: loss "
+    say(f"[train parity] smoke {arch} fp32, one train_step: loss "
         f"{float(m_cpu['loss']):.6f} (cpu) vs {float(m_gpu['loss']):.6f} "
         f"(cuda), parameters within {max(errs):.3g}")
 
+
+def phase_moe_train_parity(torch, np):
+    """``train_parity`` of the smoke ``granite-moe-1b-a400m``, then two
+    ``grad_step``s on cuda under the trainer's enforced deterministic
+    algorithms: every op of the MoE dispatch runs without raising, and
+    the two give bit-equal gradients."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.runtime.ft import deterministic
+    from repro_torch.tree import leaves
+
+    train_parity(torch, np, MOE_ARCH)
+    cfg = smoke_config(MOE_ARCH)
+    model = build_model(cfg, "cuda")
+    params = model.init(0)
+    tok = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (4, 65)), dtype=torch.int32, device="cuda")
+    _reset_attention(fa)
+    runs = []
+    for _ in range(2):
+        with deterministic(torch.device("cuda")):
+            runs.append(model.grad_step(params, {"tokens": tok}))
+    torch.cuda.synchronize()
+    _, bwd, _, _ = _count_attention(fa)
+    check(bwd.kernel_launches == bwd.launches == 2 * cfg.n_layers,
+          f"the deterministic grad steps' backward: {vars(bwd)}")
+    (l0, g0), (l1, g1) = runs
+    same = torch.equal(l0, l1) and all(
+        torch.equal(a, b) for a, b in zip(leaves(g0), leaves(g1)))
+    check(same, f"smoke {MOE_ARCH}: two grad_steps under deterministic "
+          "algorithms differ")
+    say(f"[train parity] smoke {MOE_ARCH}: two grad_steps on cuda under "
+        f"enforced deterministic algorithms: loss {float(l0):.6f}, "
+        f"{len(leaves(g0))} gradient leaves bit-equal")
 
 
 def main() -> int:
@@ -2043,16 +2290,23 @@ def main() -> int:
         clock_launched = run(phase_clock_entry, torch, cluster)
         del cluster
         run(phase_parity, torch)
-        flash, decode = run(phase_model, torch, np)
+        # each serve and training path's attention launches, by path
+        flash, decode, bwd = {}, {}, {}
+        flash[MODEL_ARCH], decode[MODEL_ARCH] = run(phase_model, torch, np)
         run(phase_model_parity, torch, np)
         run(phase_vlm_parity, torch, np)
         scans = run(phase_ssm_model, torch, np)
         run(phase_ssm_parity, torch, np)
+        flash[MOE_ARCH], decode[MOE_ARCH] = run(phase_moe_model, torch, np)
+        flash[GROK_ARCH], decode[GROK_ARCH] = run(phase_grok_model, torch, np)
+        run(phase_moe_parity, torch, np)
         bres = run(phase_attention_bwd, torch,
                    ares[("flash_attention", "path", "bfloat16")]["device_ms"])
-        _, train_bwd = run(phase_train, torch, np)
+        _, bwd[TRAIN_ARCH] = run(phase_train, torch, np)
+        _, bwd[MOE_ARCH] = run(phase_moe_train, torch, np)
         run(phase_ft, torch, np)
         run(phase_train_parity, torch, np)
+        run(phase_moe_train_parity, torch, np)
         leaked = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m == "repro" or m.startswith("repro."))
@@ -2077,7 +2331,7 @@ def main() -> int:
         "empty_launch_ms": path["empty_launch_ms"],
         "shape": path["shape"],
     }]
-    for name, replaces, ledger in (
+    for name, replaces, by_path in (
             ("flash_attention", "src/repro/kernels/flash_attention/kernel.py:102",
              flash),
             ("decode_attention",
@@ -2088,7 +2342,9 @@ def main() -> int:
             "route": "cuda",
             "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
             "replaces": replaces,
-            "launches": ledger.kernel_launches,
+            "launches": sum(c.kernel_launches for c in by_path.values()),
+            "launches_by_path": {arch: c.kernel_launches
+                                 for arch, c in by_path.items()},
             "max_abs_err": max(r["max_abs_err"] for (n, _, _), r in ares.items()
                                if n == name),
             "ms": res["ms"],
@@ -2146,7 +2402,9 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:102 "
                     "(its gradient: no Pallas backward; JAX differentiates "
                     "the jnp reference)",
-        "launches": train_bwd.kernel_launches,
+        "launches": sum(c.kernel_launches for c in bwd.values()),
+        "launches_by_path": {arch: c.kernel_launches
+                             for arch, c in bwd.items()},
         "max_abs_err": max(r["max_abs_err"] for r in bres.values()),
         "ms": bpath["ms"],
         "plain_ms": bpath["plain_ms"],

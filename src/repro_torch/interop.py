@@ -60,7 +60,9 @@ def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any],
     leaves ``[n_groups, ...]`` are unstacked into one dict per layer, in
     layer order; every matrix keeps JAX's ``[d_in, d_out]`` layout, so
     ``x @ w`` computes the same product.  Every leaf keeps its dtype: the
-    Mamba mixers' fp32 ``A_log`` and ``Dp`` stay fp32 in a bf16 model.
+    Mamba mixers' fp32 ``A_log`` and ``Dp`` and the MoE router stay fp32
+    in a bf16 model.  An MoE layer's stacked experts ``[n_groups, E, d,
+    f]`` become its own ``[E, d, f]``.
     """
     dev = resolve_device(device)
     n_groups, _, g = _plan(cfg)

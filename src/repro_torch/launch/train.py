@@ -9,12 +9,14 @@ BigStore checkpoints, membership-derived assignments, straggler sealing.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-4b \\
       --preset smoke --device cpu --steps 5 --crash-at 3
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch granite-moe-1b-a400m --preset smoke --device cpu --steps 5
   PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-4b \\
       --preset full --steps 3 --global-batch 2 --seq-len 4096
 
 PyTorch port of :mod:`repro.launch.train`, with ``--device`` (default
 ``cuda``: attention's forward and backward run the CUDA kernels).  The
-dense family trains; Mamba's ``train`` mode, MoE FFNs and the encoder are
+dense and MoE families train; Mamba's ``train`` mode and the encoder are
 not ported yet and raise.
 """
 from __future__ import annotations

@@ -13,9 +13,9 @@ Training follows the JAX package's functional API (``loss_fn``,
 difference: ``train_step`` and :func:`~repro_torch.train.optimizer.adamw_update`
 update the parameters and moments in place and return them, where JAX
 returns new trees (at ``minitron-4b``'s width a second copy of the state
-would not fit the card).  The dense and SSM families' layers have no
-auxiliary loss (the MoE FFN, whose router adds one, is not ported), so
-``loss_fn``'s ``aux`` term is 0.
+would not fit the card).  ``loss_fn`` adds ``0.01 *`` the MoE layers'
+load-balance loss to the cross-entropy, as the JAX ``loss_fn`` does;
+``prefill_step`` and ``decode_step`` drop it.
 """
 from __future__ import annotations
 
@@ -113,11 +113,10 @@ class Model:
         cfg = self.cfg
         tokens = batch["tokens"]
         inp, tgt = tokens[:, :-1], tokens[:, 1:]
-        hidden, _ = forward(params, cfg, inp, mode="train",
-                            patch_embeds=batch.get("patch_embeds"),
-                            return_hidden=True)
+        hidden, _, aux = forward(params, cfg, inp, mode="train",
+                                 patch_embeds=batch.get("patch_embeds"),
+                                 return_hidden=True)
         ce = cross_entropy(params, cfg, hidden, tgt, batch.get("mask"))
-        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
         return ce + 0.01 * aux
 
     def grad_step(self, params, batch) -> Tuple[torch.Tensor, Any]:
@@ -167,7 +166,7 @@ class Model:
         capacity ``max_len``).  ``batch`` holds ``tokens`` and, for a vision
         frontend, ``patch_embeds``."""
         tokens = batch["tokens"]
-        hidden, cache = forward(
+        hidden, cache, _ = forward(
             params, self.cfg, tokens, mode="prefill",
             patch_embeds=batch.get("patch_embeds"), return_hidden=True,
             max_cache_len=max_len or tokens.shape[1] + 64)
@@ -178,7 +177,7 @@ class Model:
     def decode_step(self, params, cache, tokens: torch.Tensor,
                     cache_len: torch.Tensor) -> Tuple[torch.Tensor, Any]:
         """(logits ``[B, vocab]``, ``cache`` updated in place)."""
-        hidden, new_cache = forward(
+        hidden, new_cache, _ = forward(
             params, self.cfg, tokens, mode="decode", cache=cache,
             cache_len=cache_len, return_hidden=True)
         logits = lm_logits(params, self.cfg, hidden)[:, 0, :]

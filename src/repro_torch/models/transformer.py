@@ -1,4 +1,5 @@
-"""Model assembly: the decoder-only LM of the dense and SSM architectures.
+"""Model assembly: the decoder-only LM of the dense, MoE and SSM
+architectures.
 
 PyTorch port of :mod:`repro.models.transformer`.  The JAX package runs its
 layer stack as ``jax.lax.scan`` over *repeating groups* (one group = the
@@ -14,12 +15,15 @@ groups reads position ``i % group_len`` at index ``i // group_len``.
 
 Modes: ``train`` (logits), ``prefill`` (logits + cache), ``decode`` (one
 token + cache update, in place); the Mamba mixers of the SSM family serve
-``prefill`` and ``decode``.  In ``train`` mode under autograd, ``cfg.remat``
+``prefill`` and ``decode``.  ``forward`` returns the MoE layers' summed
+load-balance loss beside its output, as the JAX ``forward`` does (0 for a
+model without MoE layers).  In ``train`` mode under autograd, ``cfg.remat``
 wraps each layer in ``torch.utils.checkpoint`` (non-reentrant), where the
 JAX package wraps each scanned group or tail layer in ``jax.checkpoint``:
 the values are the same, only what is kept for the backward differs (a
-layer's input; the rest is recomputed).  Mamba mixers outside the SSM family (the
-hybrid), MoE FFNs and the encoder-decoder raise
+layer's input; the rest is recomputed, the MoE router too, which on one
+device with the same input selects the same experts).  Mamba mixers
+outside the SSM family (the hybrid) and the encoder-decoder raise
 :class:`NotImplementedError`: they come with later slices of the port.  The
 vision frontend's ``patch_embeds`` (precomputed, as in the JAX package) are
 spliced over the leading positions after the embedding scale and before the
@@ -37,10 +41,10 @@ from .attention import attention_forward, init_attention, init_cache
 from .layers import (dense_init, dtype_of, embed_init, init_rmsnorm,
                      learned_positions, rmsnorm, softcap)
 from .mamba import init_mamba, init_mamba_cache, mamba_forward
-from .mlp import dense_ffn, init_dense_ffn
+from .mlp import dense_ffn, init_dense_ffn, init_moe_ffn, moe_ffn
 
 
-def _unsupported(cfg: ModelConfig, mixer: str, ffn: str) -> None:
+def _unsupported(cfg: ModelConfig, mixer: str) -> None:
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder comes with the encoder-decoder "
@@ -49,16 +53,13 @@ def _unsupported(cfg: ModelConfig, mixer: str, ffn: str) -> None:
         raise NotImplementedError(
             f"{cfg.name}: Mamba mixers beside attention come with the hybrid "
             "slice of the port")
-    if ffn == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: MoE FFNs come with the MoE slice of the port")
 
 
 def layer_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
     """(mixer, ffn) of every layer, in order; raises on what the port lacks."""
     kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
-    for mixer, ffn in kinds:
-        _unsupported(cfg, mixer, ffn)
+    for mixer, _ in kinds:
+        _unsupported(cfg, mixer)
     return kinds
 
 
@@ -82,7 +83,8 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, mixer: str, ffn: str,
         p["attn"] = init_attention(gen, cfg, dtype)
     if ffn != "none":
         p["norm2"] = init_rmsnorm(cfg.d_model, dtype, dev)
-        p["ffn"] = init_dense_ffn(gen, cfg, dtype)
+        p["ffn"] = (init_moe_ffn(gen, cfg, dtype) if ffn == "moe"
+                    else init_dense_ffn(gen, cfg, dtype))
     return p
 
 
@@ -158,7 +160,10 @@ def _assemble_cache(cfg: ModelConfig, per_layer: List[Dict]) -> Dict:
 def apply_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor, mixer: str,
                 ffn: str, *, positions, mode, cache, cache_len,
                 max_cache_len: Optional[int] = None,
-                ) -> Tuple[torch.Tensor, Optional[Dict]]:
+                ) -> Tuple[torch.Tensor, Optional[Dict],
+                           Optional[torch.Tensor]]:
+    """(output, new cache, the MoE load-balance loss or None)."""
+    aux = None
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if mixer == "mamba":
         att, new_cache = mamba_forward(p["mamba"], cfg, h, mode=mode,
@@ -171,15 +176,21 @@ def apply_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor, mixer: str,
     x = x + att
     if ffn != "none":
         h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
-        x = x + dense_ffn(p["ffn"], cfg, h2)
-    return x, new_cache
+        if ffn == "moe":
+            y, aux = moe_ffn(p["ffn"], cfg, h2)
+        else:
+            y = dense_ffn(p["ffn"], cfg, h2)
+        x = x + y
+    return x, new_cache, aux
 
 
 def _train_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor, mixer: str,
-                 ffn: str, positions: torch.Tensor) -> torch.Tensor:
+                 ffn: str, positions: torch.Tensor
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer in ``train`` mode (the function remat recomputes)."""
-    return apply_layer(p, cfg, x, mixer, ffn, positions=positions,
-                       mode="train", cache=None, cache_len=None)[0]
+    x, _, aux = apply_layer(p, cfg, x, mixer, ffn, positions=positions,
+                            mode="train", cache=None, cache_len=None)
+    return x, aux
 
 
 def embed_tokens(params: Dict, cfg: ModelConfig,
@@ -208,8 +219,9 @@ def forward(
     patch_embeds: Optional[torch.Tensor] = None,  # [B, P, d_model]
     return_hidden: bool = False,
     max_cache_len: Optional[int] = None,
-) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Returns (logits | hidden, new_cache).  Decode updates ``cache`` in
+) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """Returns (logits | hidden, new_cache, aux): ``aux`` is the fp32 sum
+    of the MoE layers' load-balance losses.  Decode updates ``cache`` in
     place and returns it.  For a vision frontend, ``patch_embeds`` replace
     the first ``P`` (scaled) token embeddings."""
     dtype = dtype_of(cfg)
@@ -230,18 +242,21 @@ def forward(
         x = x + learned_positions(params["embed"]["pos"], positions).to(dtype)
 
     new_caches: List[Dict] = []
+    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
     for i, (mixer, ffn) in enumerate(kinds):
         if remat:
-            x = checkpoint(_train_layer, params["layers"][i], cfg, x, mixer,
-                           ffn, positions, use_reentrant=False)
-            continue
-        lc = layer_cache(cache, cfg, i) if cache is not None else None
-        x, nc = apply_layer(
-            params["layers"][i], cfg, x, mixer, ffn, positions=positions,
-            mode=mode, cache=lc, cache_len=cache_len,
-            max_cache_len=max_cache_len)
-        new_caches.append(nc if nc is not None else lc)
+            x, aux = checkpoint(_train_layer, params["layers"][i], cfg, x,
+                                mixer, ffn, positions, use_reentrant=False)
+        else:
+            lc = layer_cache(cache, cfg, i) if cache is not None else None
+            x, nc, aux = apply_layer(
+                params["layers"][i], cfg, x, mixer, ffn, positions=positions,
+                mode=mode, cache=lc, cache_len=cache_len,
+                max_cache_len=max_cache_len)
+            new_caches.append(nc if nc is not None else lc)
+        if aux is not None:
+            aux_total = aux_total + aux
 
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if return_hidden:
@@ -254,7 +269,7 @@ def forward(
         new_cache = cache
     elif mode == "prefill":
         new_cache = _assemble_cache(cfg, new_caches)
-    return out, new_cache
+    return out, new_cache, aux_total
 
 
 def lm_logits(params: Dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,7 @@ from repro_torch.configs import smoke_config
 from repro_torch.interop import params_from_jax
 from repro_torch.models import build_model
 from repro_torch.models.transformer import init_decode_cache, layer_cache
+from repro_torch.tree import leaves_with_path
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 ARCHS = ["gemma3-27b", "minitron-4b", "mistral-large-123b",
@@ -233,11 +234,23 @@ def test_embedding_scale_rounds_to_the_model_dtype():
     assert float(torch.tensor(5376 ** 0.5, dtype=torch.bfloat16)) == 73.5
 
 
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
-                                  "granite-moe-1b-a400m", "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "whisper-tiny"])
 def test_later_slices_raise(arch):
     with pytest.raises(NotImplementedError, match="slice of the port"):
         build_model(smoke_config(arch), "cpu").init(0)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "grok-1-314b"])
+def test_moe_config_builds_with_the_parameter_shapes_of_params_from_jax(arch):
+    cfg = smoke_config(arch)
+    got = build_model(cfg, "cpu").init(0)
+    jparams = jax_build_model(jax_smoke_config(arch)).init(jax.random.key(0))
+    want = params_from_jax(cfg, jax.tree.map(np.asarray, jparams), "cpu")
+    shapes = [[(path, tuple(t.shape), t.dtype)
+               for path, t in leaves_with_path(tree)] for tree in (got, want)]
+    assert shapes[0] == shapes[1]
+    assert all("ffn" in layer and "router" in layer["ffn"]
+               for layer in got["layers"])
 
 
 def test_prefill_longer_than_the_cache_keeps_the_tail_in_ring_order():
