@@ -11,12 +11,12 @@ Phases, each printed as it runs; any failure exits non-zero:
    name and power limit as ``nvidia-smi`` reports them;
 2. build — compiles every CUDA kernel of the port (``dot_seen``,
    ``flash_attention`` and its backward, ``decode_attention``,
-   ``mamba_scan``, ``clock_ops``) from the checkout's sources with ``nvcc``, one process
-   per source, started together, and beside them prints what
-   ``nvcc -Xptxas -v`` reports (registers, shared memory, spills) for the
-   attention kernels' tensor-core and split-KV routes, both routes of the
-   attention backward, the scan, ``dot_seen`` and the clock merge and
-   popcount;
+   ``mamba_scan`` and its backward, ``clock_ops``) from the checkout's
+   sources with ``nvcc``, one process per source, started together, and
+   beside them prints what ``nvcc -Xptxas -v`` reports (registers, shared
+   memory, spills) for the attention kernels' tensor-core and split-KV
+   routes, both routes of the attention backward, the scan and its
+   backward, ``dot_seen`` and the clock merge and popcount;
 3. kernels — holds each kernel against its plain PyTorch version on the
    card: ``dot_seen`` bit for bit at the bigset serve path's shape and a
    stress shape, beside an empty launch's device time (the floor a launch
@@ -24,14 +24,16 @@ Phases, each printed as it runs; any failure exits non-zero:
    on its SIMT route) and ``decode_attention`` (split-KV) in bf16 and fp32
    at the model serve path's shapes (global and local layers: a window of
    1,024 in prefill, a ring of 1,024 slots in decode), the MoE serve
-   paths' (16 over 8 heads of 64, 48 over 8 of 128) and a stress shape
+   paths' (16 over 8 heads of 64, 48 over 8 of 128), the hybrid's (64
+   over 8 of 128) and a stress shape
    (head dim 256, MHA, ragged lengths), within the CPU tests' tolerances.
    It times the wrapper and the device (a CUDA graph of launches) with
    CUDA events, the plain version, and, beside each attention kernel,
    PyTorch's ``scaled_dot_product_attention`` on the same inputs and mask
    (a yardstick the port never calls); ``mamba_scan``, ``y`` and the
    final state, at the SSM prefill's shape (T = 1,536, D = 8,192, N = 16)
-   in fp32 and in bf16 (the path's type), a stress shape (B = 4, ragged
+   in fp32 and in bf16 (the path's type), the hybrid's (D = 16,384, bf16),
+   a stress shape (B = 4, ragged
    T = 777), N = 8 at D = 64 and a long prompt (T = 8,192), each timed
    beside its byte bound and the floor of its exps on the special-function
    units; the clock
@@ -91,10 +93,18 @@ Phases, each printed as it runs; any failure exits non-zero:
     every earlier model is freed, through the same engine and prompts;
     every decode step reads the dequantised int8 cache through the decode
     kernel;
-13. MoE parity — the smoke ``granite-moe-1b-a400m`` and the smoke
+13. hybrid model — ``jamba-1.5-large-398b`` at full width (d_model
+    8,192, 64 over 8 heads of 128, d_inner 16,384, 16 experts top 2 of
+    d_ff 24,576, its int8 KV cache) with its depth cut from 72 to 5 layers
+    (4 Mamba and 1 attention mixer; 48.1 GB of bf16 weights), after every
+    earlier model is freed, through the same engine and prompts; the
+    launch checks count mixers: a flash launch an attention layer and
+    prompt, a decode launch an attention layer and step, a scan launch (in
+    bf16) a Mamba layer and prompt;
+14. MoE parity — the smoke ``granite-moe-1b-a400m`` and the smoke
     ``grok-1-314b`` (fp32; grok's int8 cache kept) on ``cpu`` and on
     ``cuda``: identical greedy streams and logits within 1e-4;
-14. attention backward — the backward kernel (``flash_attention_bwd.cu``)
+15. attention backward — the backward kernel (``flash_attention_bwd.cu``)
     against its plain version from the same forward output and
     log-sum-exps, and against autograd of the plain attention in fp32, at
     the training path's shape (24 over 8 heads, T = S = 4,096, D = 128,
@@ -110,7 +120,19 @@ Phases, each printed as it runs; any failure exits non-zero:
     high) must fail both checks; device, wrapper, plain
     and SDPA backward ms beside the bound; then the forward at the serve
     shape of the attention phase with and without the log-sum-exp output;
-15. train — the training path: ``FTTrainer`` on the full 32-layer
+16. mamba backward — the scan's backward kernel
+    (``mamba_scan_bwd.cu``) from the forward's train variant's chunk
+    edges, against its plain version at the SSM training path's shape
+    (``falcon-mamba-7b``: T = 4,096, D = 8,192, N = 16), at
+    ``jamba-1.5-large-398b``'s width (D = 16,384), a ragged T = 63 and
+    N = 8 at B = 2, each in fp32 and bf16 (``MAMBA_BWD_TOL``), with two
+    calls bit-identical and the train variant's ``y`` and ``h_T`` equal to
+    the serve launch's; the plain version against fp32 autograd of the
+    plain scan; at the path shape a wrong gradient (the carry
+    ``a_{t+1} g_{t+1}`` dropped at the first chunk edge) must fail the
+    check; device, wrapper and plain ms beside the bound and the floor of
+    the exps;
+17. train — the training path: ``FTTrainer`` on the full 32-layer
     ``minitron-4b`` (bf16, fp32 AdamW moments, remat) with random weights
     (seed 0), two simulated hosts of one 4,096-token sequence each, 4
     steps (the global batch cut from ``train_4k``'s 256 to 2); the flash
@@ -120,28 +142,40 @@ Phases, each printed as it runs; any failure exits non-zero:
     ms, tokens/s and ``mfu`` over the two warm unprofiled steps (2 and 3)
     with their spread, peak memory, the last step's device busy share
     from ``torch.profiler``;
-16. MoE train — the same on the full ``granite-moe-1b-a400m`` (bf16, fp32
+18. MoE train — the same on the full ``granite-moe-1b-a400m`` (bf16, fp32
     AdamW moments, remat): ``mfu`` counts the parameters a token reaches
     (``ModelConfig.n_active_params``), checked against a count of the
     held leaves; the profiled step's device time by class (attention
     kernels, matmuls, the MoE dispatch: top-k, sort, searchsorted,
     scatters and gathers);
-17. fault tolerance — at full width and 2 layers, ``test_ft.py``'s
+19. SSM train — the same on ``falcon-mamba-7b`` at full width (d_model
+    4,096, d_inner 8,192, vocab 65,024, bf16, fp32 moments, remat) with its
+    depth cut from 64 to ``SSM_TRAIN_LAYERS``: every scan forward (twice
+    a layer under remat) and backward on the kernels, in bf16; the
+    profiled step's device time by class (matmuls, scan forward, scan
+    backward); then two deterministic ``grad_step``s of the model at full
+    width and 2 layers, bit-equal;
+20. fault tolerance — at full width and 2 layers, ``test_ft.py``'s
     crash-restore flow at 4,096 tokens: train, checkpoint, a checkpoint
     host crashes, a restarted fleet restores from the surviving replicas
     and continues, with losses equal to an uninterrupted run's within
     rtol 1e-5; save and restore seconds, the store's bytes, peak RSS;
-18. train parity — one ``train_step`` of the smoke ``minitron-4b`` (fp32)
+21. train parity — one ``train_step`` of the smoke ``minitron-4b`` (fp32)
     from one state on ``cpu`` and on ``cuda``: loss within 1e-4,
     parameters within rtol 1e-4 / atol 1e-5;
-19. MoE train parity — the same for the smoke ``granite-moe-1b-a400m``,
+22. MoE train parity — the same for the smoke ``granite-moe-1b-a400m``,
     then two of its ``grad_step``s on ``cuda`` under the trainer's
-    enforced deterministic algorithms, whose gradients must be bit-equal.
+    enforced deterministic algorithms, whose gradients must be bit-equal;
+23. hybrid parity — the smoke ``jamba-1.5-large-398b`` (fp32, int8 cache,
+    one mixed group of 8 layers and one in the tail) served on ``cpu`` and
+    on ``cuda``: identical greedy streams and logits within 1e-4; then
+    ``train parity`` and two deterministic ``grad_step``s bit-equal, which
+    run the scan's backward, attention's and the MoE dispatch's together.
 
 Each phase prints its seconds (``[time]``).  The line before the last is
-one JSON object with every kernel's numbers (the attention kernels'
-launches summed over the serve and training paths, with each path's
-count beside); the last line is
+one JSON object with every kernel's numbers (the attention kernels' and
+the scan's launches summed over the serve and training paths, with each
+path's count beside); the last line is
 ``{"ok": true, "device": {...}}``.  The script imports
 neither ``jax`` nor the JAX package ``repro``.
 """
@@ -206,14 +240,15 @@ def phase_device(torch):
 
 
 # The kernels of the serve paths (the attention kernels' routes, the scan,
-# dot_seen), of the clock lattice and of the attention backward (both
-# routes) whose registers, shared memory and spills the build phase
-# reports.
+# dot_seen), of the clock lattice and of the backwards of attention (both
+# routes) and of the scan whose registers, shared memory and spills the
+# build phase reports.
 PTXAS_KERNELS = ("flash_attention_kernel_tc", "decode_attention_kernel_split",
                  "decode_attention_kernel_combine", "mamba_scan_kernel",
                  "dot_seen_kernel", "clock_merge_kernel",
                  "clock_popcount_kernel", "attn_bwd_dkdv", "attn_bwd_dq",
-                 "attn_bwd_dkdv_tc", "attn_bwd_dq_tc")
+                 "attn_bwd_dkdv_tc", "attn_bwd_dq_tc",
+                 "mamba_scan_bwd_kernel", "mamba_scan_bwd_reduce_kernel")
 _PTXAS_TYPES = {"13__nv_bfloat16": "bf16", "f": "f32"}
 
 
@@ -282,10 +317,12 @@ def phase_build():
 
     modules = [dot_seen_kernel, flash_kernel, decode_kernel, mamba_kernel,
                clock_kernel]
-    sources = [m.SOURCE for m in modules] + [flash_kernel.BWD_SOURCE]
+    sources = [m.SOURCE for m in modules] + [flash_kernel.BWD_SOURCE,
+                                             mamba_kernel.BWD_SOURCE]
     reported = [flash_kernel.SOURCE, flash_kernel.BWD_SOURCE,
                 decode_kernel.SOURCE, mamba_kernel.SOURCE,
-                dot_seen_kernel.SOURCE, clock_kernel.SOURCE]
+                mamba_kernel.BWD_SOURCE, dot_seen_kernel.SOURCE,
+                clock_kernel.SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources) + len(reported)) as pool:
         reports = pool.map(ptxas_report, reported)
@@ -294,6 +331,7 @@ def phase_build():
     for m in modules:
         m.library()
     flash_kernel.bwd_library()
+    mamba_kernel.bwd_library()
     dt = time.perf_counter() - t0
     say(f"[build] {len(sources)} CUDA source(s) built for sm_90a in "
         f"{dt:.2f}s -> {build.build_dir()}")
@@ -468,14 +506,17 @@ def phase_kernels(torch, np):
 # a local one (window 1,024), and a decode step of 4 rows of a 2,048-slot
 # cache with ragged lengths and of a local layer's 1,024-slot ring.  The
 # MoE serve paths' shapes: granite-moe-1b-a400m's 16 over 8 heads of 64 and
-# grok-1-314b's 48 over 8 heads of 128.  The stress shapes take head dim
-# 256, MHA and ragged lengths.
+# grok-1-314b's 48 over 8 heads of 128; the hybrid's, jamba-1.5-large-398b's
+# 64 over 8 heads of 128.  The stress shapes take head dim 256, MHA and
+# ragged lengths.
 FLASH_SHAPES = {
     "path": dict(B=1, Hq=32, Hkv=16, T=1536, S=1536, D=128, window=None),
     "path-local": dict(B=1, Hq=32, Hkv=16, T=1536, S=1536, D=128,
                        window=1024),
     "path-moe": dict(B=1, Hq=16, Hkv=8, T=1536, S=1536, D=64, window=None),
     "path-grok": dict(B=1, Hq=48, Hkv=8, T=1536, S=1536, D=128, window=None),
+    "path-jamba": dict(B=1, Hq=64, Hkv=8, T=1536, S=1536, D=128,
+                       window=None),
     "stress": dict(B=2, Hq=8, Hkv=8, T=777, S=1000, D=256, window=None),
 }
 DECODE_SHAPES = {
@@ -488,6 +529,8 @@ DECODE_SHAPES = {
                      lens=[1537, 1281, 9, 700]),
     "path-grok": dict(B=4, Hq=48, Hkv=8, S=2048, D=128, window=None,
                       lens=[1537, 1281, 9, 700]),
+    "path-jamba": dict(B=4, Hq=64, Hkv=8, S=2048, D=128, window=None,
+                       lens=[1537, 1281, 9, 700]),
     "stress": dict(B=3, Hq=8, Hkv=8, S=4096, D=256, window=1000,
                    lens=[1, 2500, 4096]),
 }
@@ -643,11 +686,14 @@ def phase_attention_kernels(torch):
 # ------------------------------------------------------------ mamba scan
 # The SSM serve path's prefill scan (falcon-mamba-7b: d_inner 8,192, state
 # 16) over the 1,536-token prompt, in fp32 and in bf16 (the model's type,
-# which the path runs); a stress shape with B > 1 and ragged T; the smoke
+# which the path runs), and the hybrid's (jamba-1.5-large-398b: d_inner
+# 16,384) in bf16; a stress shape with B > 1 and ragged T; the smoke
 # model's state of 8 at a narrow width; and a long prompt of 8,192 tokens.
 MAMBA_SHAPES = {
     "path": dict(B=1, T=1536, D=8192, N=16),
     "path-bf16": dict(B=1, T=1536, D=8192, N=16, dtype="bfloat16"),
+    # the hybrid serve path's: jamba-1.5-large-398b's d_inner
+    "path-jamba": dict(B=1, T=1536, D=16384, N=16, dtype="bfloat16"),
     "stress": dict(B=4, T=777, D=8192, N=16),
     "n8": dict(B=2, T=333, D=64, N=8),
     "long": dict(B=1, T=8192, D=8192, N=16),
@@ -1143,6 +1189,8 @@ DISPATCH_NAMES = ("topk", "radix", "sort", "scatter", "gather",
 
 
 def _kernel_class(name: str) -> str:
+    if "mamba_scan_bwd_" in name:
+        return "mamba_scan_bwd"
     for kernel in ("flash_attention", "decode_attention", "mamba_scan"):
         if f"{kernel}_kernel" in name:
             return kernel
@@ -1223,9 +1271,9 @@ def serve_full_model(torch, np, arch: str, ledgers, routes=None,
     """Serve the six prompts on the full ``arch`` (its depth cut to
     ``n_layers`` where given) in bf16 with random weights through
     ``ServeEngine``, with ``ledgers`` (name -> the kernel wrappers'
-    ``DISPATCHES``) and ``routes`` (a wrapper's launches by route) zeroed
-    just before and read just after, and the serving loop inside the
-    context ``during`` where given.
+    ``DISPATCHES``) and ``routes`` (name -> a wrapper's launches by route
+    or by type) zeroed just before and read just after, and the serving
+    loop inside the context ``during`` where given.
 
     Checks that every request is served in full, every token is in the
     vocabulary, every logit is finite and every dispatch launched the CUDA
@@ -1268,8 +1316,9 @@ def serve_full_model(torch, np, arch: str, ledgers, routes=None,
     routes = {} if routes is None else routes
     for ledger in ledgers.values():
         ledger.reset()
-    for route in routes:
-        routes[route] = 0
+    for by_route in routes.values():
+        for route in by_route:
+            by_route[route] = 0
     t0 = time.perf_counter()
     decode_tokens = 0
     with during if during is not None else contextlib.nullcontext():
@@ -1278,7 +1327,7 @@ def serve_full_model(torch, np, arch: str, ledgers, routes=None,
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {name: ledger.snapshot() for name, ledger in ledgers.items()}
-    route_counts = dict(routes)
+    route_counts = {name: dict(r) for name, r in routes.items()}
 
     check(all(r.done and len(r.out_tokens) == MODEL_NEW for r in reqs),
           f"{arch}: a request was not served in full")
@@ -1318,19 +1367,48 @@ def serve_full_model(torch, np, arch: str, ledgers, routes=None,
     return cfg, n_reqs, steps, counts, route_counts, stats
 
 
+def _mixers(cfg):
+    """(attention layers, Mamba layers) of ``cfg``."""
+    n_mamba = sum(cfg.layer_kind(i)[0] == "mamba" for i in range(cfg.n_layers))
+    return cfg.n_layers - n_mamba, n_mamba
+
+
 def serve_attention_model(torch, np, arch: str, n_layers=None, during=None):
-    """``serve_full_model`` on an attention model: every prefill on the
+    """``serve_full_model`` on a model with attention: every prefill on the
     flash kernel's tensor-core route (bf16, head dim a multiple of 16),
-    one flash launch a layer and prompt, one decode launch a layer and
-    step.  Returns (config, requests, decode steps, the flash and decode
-    counts, the path's metrics)."""
+    one flash launch an attention layer and prompt, one decode launch an
+    attention layer and step; a hybrid's Mamba layers one scan launch (on
+    the bf16 activations) a layer and prompt.  Returns (config, requests,
+    decode steps, the flash, decode and scan counts, the path's metrics);
+    the scan count is None for a model without Mamba layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
 
-    cfg, n_reqs, steps, counts, routes, stats = serve_full_model(
-        torch, np, arch, {"flash": fa.DISPATCHES, "decode": dec.DISPATCHES},
-        routes=fa.ROUTE_LAUNCHES, n_layers=n_layers, during=during)
+    full = get_config(arch)
+    n_attn, n_mamba = _mixers(dataclasses.replace(
+        full, n_layers=n_layers or full.n_layers))
+    ledgers = {"flash": fa.DISPATCHES, "decode": dec.DISPATCHES}
+    if n_mamba:
+        ledgers["mamba_scan"] = ms.DISPATCHES
+    cfg, n_reqs, steps, counts, by_route, stats = serve_full_model(
+        torch, np, arch, ledgers, routes={"flash": fa.ROUTE_LAUNCHES,
+                                          "mamba_scan": ms.DTYPE_LAUNCHES},
+        n_layers=n_layers, during=during)
     flash, decode = counts["flash"], counts["decode"]
+    routes = by_route["flash"]
+    scans = counts.get("mamba_scan")
+    dtypes = by_route["mamba_scan"]
+    want = {"float32": 0, "bfloat16": scans.launches if scans else 0}
+    check(dtypes == want, f"mamba_scan launches by input type {dtypes}: "
+          f"every scan of the bf16 {arch} must read bf16")
+    if scans is not None:
+        check(scans.launches == n_mamba * n_reqs,
+              f"mamba_scan dispatches {scans.launches} != {n_mamba} Mamba "
+              f"layers x {n_reqs} prompts")
     # decode has the split-KV kernels alone, so a launch of its kernel is one
     check(routes == {"tc": flash.launches, "simt": 0},
           f"flash_attention launches by route {routes}: every bf16 "
@@ -1338,27 +1416,28 @@ def serve_attention_model(torch, np, arch: str, n_layers=None, during=None):
     check(flash.kernel_launches == flash.launches
           and decode.kernel_launches == decode.launches,
           "an attention dispatch missed its CUDA kernel")
-    check(flash.launches == cfg.n_layers * n_reqs,
+    check(flash.launches == n_attn * n_reqs,
           f"flash_attention dispatches {flash.launches} != "
-          f"{cfg.n_layers} x {n_reqs} prompts")
-    check(decode.launches == cfg.n_layers * steps,
+          f"{n_attn} attention layers x {n_reqs} prompts")
+    check(decode.launches == n_attn * steps,
           f"decode_attention dispatches {decode.launches} != "
-          f"{cfg.n_layers} x {steps} steps")
-    return cfg, n_reqs, steps, flash, decode, stats
+          f"{n_attn} attention layers x {steps} steps")
+    return cfg, n_reqs, steps, flash, decode, scans, stats
 
 
 def phase_model(torch, np):
-    _, _, _, flash, decode, _ = serve_attention_model(torch, np, MODEL_ARCH)
+    _, _, _, flash, decode, _, _ = serve_attention_model(torch, np,
+                                                         MODEL_ARCH)
     return flash, decode
 
 
 def phase_ssm_model(torch, np):
     from repro_torch.kernels import mamba_scan as ms
 
-    cfg, n_reqs, _, counts, dtypes, _ = serve_full_model(
+    cfg, n_reqs, _, counts, by_route, _ = serve_full_model(
         torch, np, SSM_ARCH, {"mamba_scan": ms.DISPATCHES},
-        routes=ms.DTYPE_LAUNCHES)
-    scans = counts["mamba_scan"]
+        routes={"mamba_scan": ms.DTYPE_LAUNCHES})
+    scans, dtypes = counts["mamba_scan"], by_route["mamba_scan"]
     check(scans.launches == cfg.n_layers * n_reqs,
           f"mamba_scan dispatches {scans.launches} != "
           f"{cfg.n_layers} x {n_reqs} prompts")
@@ -1592,7 +1671,7 @@ def serve_moe_model(torch, np, arch: str, n_layers=None):
     from repro_torch.models.mlp import capacity
 
     records = []
-    cfg, n_reqs, steps, flash, decode, stats = serve_attention_model(
+    cfg, n_reqs, steps, flash, decode, scans, stats = serve_attention_model(
         torch, np, arch, n_layers=n_layers, during=recorded_routing(records))
     n_moe = sum(cfg.layer_kind(i)[1] == "moe" for i in range(cfg.n_layers))
     prefills = [r for r in records if r[0] > 1]
@@ -1615,11 +1694,11 @@ def serve_moe_model(torch, np, arch: str, n_layers=None):
         f"{cfg.n_experts} experts, top {cfg.experts_per_token}, capacity "
         f"factor {cfg.capacity_factor}): {json.dumps(drops)}; decode: 0 of "
         f"{sum(keep.numel() for _, keep in decodes)} token-slots dropped")
-    return cfg, flash, decode, stats
+    return cfg, flash, decode, scans, stats
 
 
 def phase_moe_model(torch, np):
-    _, flash, decode, _ = serve_moe_model(torch, np, MOE_ARCH)
+    _, flash, decode, _, _ = serve_moe_model(torch, np, MOE_ARCH)
     return flash, decode
 
 
@@ -1633,11 +1712,39 @@ def phase_grok_model(torch, np):
     torch.cuda.empty_cache()
     say(f"[model {GROK_ARCH}] {torch.cuda.memory_allocated() / 1e9:.3f} GB "
         f"allocated before the model is drawn")
-    cfg, flash, decode, stats = serve_moe_model(torch, np, GROK_ARCH,
-                                                n_layers=GROK_LAYERS)
+    cfg, flash, decode, _, stats = serve_moe_model(torch, np, GROK_ARCH,
+                                                   n_layers=GROK_LAYERS)
     check(cfg.kv_cache_dtype == "int8" and "int8" in stats["cache_dtypes"],
           f"{GROK_ARCH}: the cache holds {stats['cache_dtypes']}, no int8")
     return flash, decode
+
+
+HYBRID_ARCH = "jamba-1.5-large-398b"
+# jamba-1.5-large-398b's depth cut from 72 layers to the first 5, so that
+# the attention layer of each 8 (offset 4) is in: 4 Mamba mixers and 1
+# attention mixer, 2 MoE FFNs and 3 dense ones, 24.05 B parameters (48.1 GB
+# in bf16); a sixth layer (an MoE one) would make 34.1 B, 68 GB
+HYBRID_LAYERS = 5
+
+
+def phase_hybrid_model(torch, np):
+    """jamba-1.5-large-398b at full width with its depth cut to
+    ``HYBRID_LAYERS``, after every earlier model is freed: its Mamba
+    layers' prefill scans at d_inner 16,384 and its attention layer's
+    int8 cache, dequantised, through the decode kernel."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[model {HYBRID_ARCH}] {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+        f"allocated before the model is drawn")
+    cfg, flash, decode, scans, stats = serve_moe_model(
+        torch, np, HYBRID_ARCH, n_layers=HYBRID_LAYERS)
+    check(_mixers(cfg) == (1, 4), f"{HYBRID_ARCH} cut to {cfg.n_layers} "
+          f"layers holds {_mixers(cfg)} attention and Mamba mixers")
+    check(cfg.kv_cache_dtype == "int8" and "int8" in stats["cache_dtypes"],
+          f"{HYBRID_ARCH}: the cache holds {stats['cache_dtypes']}, no int8")
+    return flash, decode, scans
 
 
 def phase_moe_parity(torch, np):
@@ -1909,6 +2016,175 @@ def phase_attention_bwd(torch, fwd_path_ms):
     return results
 
 
+# ------------------------------------------------------- scan backward
+# B6', the scan's backward, at the SSM training path's shape
+# (falcon-mamba-7b: d_inner 8,192, state 16, one 4,096-token sequence), at
+# jamba-1.5-large-398b's width (d_inner 16,384), a T that does not fill a
+# chunk of 32, and the smoke models' state of 8 at B = 2; each in fp32
+# and in bf16, the path's type.
+MAMBA_BWD_SHAPES = {
+    "path": dict(B=1, T=4096, D=8192, N=16),
+    "jamba": dict(B=1, T=4096, D=16384, N=16),
+    "ragged": dict(B=1, T=63, D=1024, N=16),
+    "n8": dict(B=2, T=777, D=512, N=8),
+}
+# B6''s tolerances against its plain version, by dtype: elementwise
+# |g - ref| <= atol + share * max |ref| + rtol * |ref|, as (rtol, atol,
+# share), and the largest ||g - ref|| / ||ref||.  fp32: rtol 1e-4 with an
+# atol of 1e-5 of the gradient's largest entry, and 1e-5 in norm.  The
+# atol scales with the gradient because at T = 4,096 the sums reach
+# |ddelta| ~ 270 and |dD| ~ 250, where one fp32 rounding is ~3e-5, and
+# ddelta's entries are sums over the states that cancel: the kernel's
+# exps are ex2.approx (the forward's) and the plain version's torch.exp,
+# so a small entry carries the rounding of its large terms.  Each shape
+# also reports how many entries an absolute 1e-5 (+ rtol 1e-4) would
+# reject (``over_atol_1e-5``).  bf16 (inputs and dx, ddelta, dB, dC
+# rounded to bf16, both versions summing in fp32): B4''s elementwise two
+# bf16 steps (rtol 1.6e-2) above 1e-3, and 5e-4 in norm, set from the
+# readings in PERF.md section 6; a wrong gradient reads far above both.
+# The plain version against fp32 autograd of the plain scan (one
+# recurrence, summed in another order): rtol 1e-4 / atol 1e-5.
+MAMBA_BWD_TOL = {"float32": ((1e-4, 0.0, 1e-5), 1e-5),
+                 "bfloat16": ((1.6e-2, 1e-3, 0.0), 5e-4)}
+MAMBA_GRADS = ("dx", "ddelta", "dA", "dB", "dC", "dD")
+
+
+def _scan_grad_ok(g, ref, dtype: str) -> bool:
+    (rtol, atol, share), rel = MAMBA_BWD_TOL[dtype]
+    g, w = g.double(), ref.double()
+    bound = atol + share * float(w.abs().max()) + rtol * w.abs()
+    close = bool(((g - w).abs() <= bound).all())
+    return close and _grad_err(g, w)[1] <= rel
+
+
+def _wrong_scan_bwd(torch, ms, args, dy, got, want, dtype: str):
+    """What a wrong gradient reads: the kernel's with the carry
+    ``a_{t+1} g_{t+1}`` into ``g_31`` dropped, i.e. dx, ddelta, dB and dC
+    of steps 0..31 replaced by the kernel's gradients of those 32 steps
+    taken alone.  The check must reject it."""
+    head = [a[:, :32].contiguous() if a.dim() == 3 else a for a in args]
+    _, _, edges = ms.mamba_scan_cuda(*head, with_edges=True)
+    alone = ms.mamba_scan_bwd_cuda(*head, dy[:, :32].contiguous(), edges)
+    wrong = [g.clone() for g in got]
+    for i in (0, 1, 3, 4):
+        wrong[i][:, :32] = alone[i]
+    read, passes = {}, True
+    for name, g, w in zip(MAMBA_GRADS, wrong, want):
+        mx, rel = _grad_err(g, w)
+        read[name] = dict(max_abs_err=mx, rel_norm_err=rel)
+        passes = passes and _scan_grad_ok(g, w, dtype)
+    check(not passes, f"mamba_scan backward: a wrong gradient (the carry "
+          f"dropped at the first chunk edge) passes the check: {read}")
+    return read
+
+
+def phase_mamba_bwd(torch):
+    """B6', the scan's backward, from the forward's train variant's chunk
+    edges, against its plain version and (fp32) the plain version against
+    autograd of the plain scan, at ``MAMBA_BWD_SHAPES``; timings beside
+    the bound and the exps' floor."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    results = {}
+    for shape, s0 in MAMBA_BWD_SHAPES.items():
+        for dname in ("float32", "bfloat16"):
+            s = dict(s0, dtype=dname)
+            args = mamba_inputs(torch, s, seed=21)
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            dy = torch.randn(args[0].shape, generator=gen,
+                             device="cuda").to(args[0].dtype)
+            y0, h0 = ms.mamba_scan_cuda(*args)
+            y1, h1, edges = ms.mamba_scan_cuda(*args, with_edges=True)
+            check(torch.equal(y0, y1) and torch.equal(h0, h1),
+                  f"mamba_scan {shape} {dname}: the train variant changes "
+                  "the serve outputs")
+            before = ms.BWD_DISPATCHES.kernel_launches
+            got = ms.mamba_scan_bwd(*args, dy, edges)
+            torch.cuda.synchronize()
+            check(ms.BWD_DISPATCHES.kernel_launches == before + 1,
+                  f"mamba_scan backward {shape}: not on the kernel")
+            check([g.dtype for g in got] == [a.dtype for a in args],
+                  f"mamba_scan backward {shape}: gradients in "
+                  f"{[g.dtype for g in got]}")
+            want = ms.mamba_scan_bwd_ref(*args, dy)
+            errs, rels, over = {}, {}, {}
+            for name, g, w in zip(MAMBA_GRADS, got, want):
+                check(bool(torch.isfinite(g).all()),
+                      f"mamba_scan backward {shape} {dname}: {name} not finite")
+                errs[name], rels[name] = _grad_err(g, w)
+                over[name] = int(((g.double() - w.double()).abs()
+                                  > 1e-5 + 1e-4 * w.double().abs()).sum())
+                check(_scan_grad_ok(g, w, dname),
+                      f"mamba_scan backward {shape} {dname} {name}: max abs "
+                      f"err {errs[name]}, relative in norm {rels[name]}, "
+                      f"largest entry {float(w.abs().max())}")
+            again = ms.mamba_scan_bwd_cuda(*args, dy, edges)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"mamba_scan backward {shape} {dname}: two calls differ")
+            res = dict(shape=f"B={s['B']},T={s['T']},D={s['D']},N={s['N']}",
+                       dtype=dname, max_abs_err=max(errs.values()),
+                       max_abs_err_by_grad=errs, rel_norm_err=rels,
+                       **{"over_atol_1e-5": over},
+                       max_abs_ref={n: float(w.abs().max())
+                                    for n, w in zip(MAMBA_GRADS, want)})
+            if dname == "float32" and shape != "jamba":
+                # the plain version against autograd of the plain scan
+                leaves_ = [a.detach().clone().requires_grad_() for a in args]
+                exact = torch.autograd.grad(
+                    ms.mamba_scan_ref(*leaves_)[0], leaves_, dy)
+                auto = {}
+                for name, w, e in zip(MAMBA_GRADS, want, exact):
+                    auto[name] = _grad_err(w, e)[0]
+                    check(bool(((w - e).abs() <= 1e-5 + 1e-4 * e.abs()).all()),
+                          f"mamba_scan_bwd_ref {shape} {name} against fp32 "
+                          f"autograd: max abs err {auto[name]}")
+                res["plain_vs_fp32_autograd_max_abs_err"] = auto
+                del exact, leaves_
+            if shape == "path":
+                res["wrong_gradient_rejected"] = _wrong_scan_bwd(
+                    torch, ms, args, dy, got, want, dname)
+            B, T, D, N = s["B"], s["T"], s["D"], s["N"]
+            n_chunks = edges.shape[2]
+            esize = args[0].element_size()
+            # x, delta, dy read and dx, ddelta written (the inputs' type);
+            # B, C read and dB, dC written; A, D and the edges read, dA, dD
+            # written in fp32
+            nbytes = (esize * (5 * B * T * D + 4 * B * T * N)
+                      + 4 * (2 * D * N + 2 * D + B * D * n_chunks * N))
+            # per state element and step: delta*A, exp, the state's FMA
+            # (recomputed), g's FMA and dy*C, h_t, the dB, dC, dx and
+            # ddelta terms and their sums, dA's; per channel and step
+            # delta*x, D*dy, dD's FMA
+            ops = B * T * D * (18 * N + 5)
+            bound_ms, bound_by = _bound(nbytes, ops, "float32")
+            res.update(bound_ms=bound_ms, bound_by=bound_by, ops=ops,
+                       bytes=nbytes,
+                       # one exp a state element and step (a_t, needed by
+                       # the forward's states and by g)
+                       sfu_ms=B * T * D * N / SFU_EX2_PER_S * 1e3)
+            big = shape in ("path", "jamba")
+            iters = 5 if big else 20
+            res["ms"] = time_ms(torch, lambda: ms.mamba_scan_bwd(
+                *args, dy, edges), iters, warmup=1)
+            res["device_ms"] = graph_ms(torch, lambda: ms.mamba_scan_bwd_cuda(
+                *args, dy, edges), iters)
+            res["train_forward_device_ms"] = graph_ms(
+                torch, lambda: ms.mamba_scan_cuda(*args, with_edges=True),
+                iters)
+            res["serve_forward_device_ms"] = graph_ms(
+                torch, lambda: ms.mamba_scan_cuda(*args), iters)
+            # the plain version loops over T on the host: one call at the
+            # long shapes
+            res["plain_ms"] = time_ms(torch, lambda: ms.mamba_scan_bwd_ref(
+                *args, dy), 1 if big else 2, warmup=0 if big else 1)
+            results[(shape, dname)] = res
+            say(f"[kernel] mamba_scan backward {shape} {dname}: "
+                f"{json.dumps(res)}")
+            del got, want, again, edges
+            torch.cuda.empty_cache()
+    return results
+
+
 # --------------------------------------------------------- training path
 TRAIN_ARCH = "minitron-4b"
 TRAIN_STEPS = 4  # a warm-up, two timed steps, one profiled
@@ -1933,6 +2209,13 @@ def _reset_attention(fa):
     for counts in (fa.ROUTE_LAUNCHES, fa.BWD_ROUTE_LAUNCHES):
         for route in counts:
             counts[route] = 0
+
+
+def _reset_scan(ms):
+    ms.DISPATCHES.reset()
+    ms.BWD_DISPATCHES.reset()
+    for name in ms.DTYPE_LAUNCHES:
+        ms.DTYPE_LAUNCHES[name] = 0
 
 
 def _trace_busy(torch, fn, what: str):
@@ -1991,30 +2274,98 @@ def _reached_params(cfg, params) -> int:
 def phase_train(torch, np):
     """The training path: ``FTTrainer`` on the full ``minitron-4b`` (32
     layers, d_model 3072, bf16, fp32 AdamW moments, remat)."""
-    return train_full_model(torch, np, TRAIN_ARCH)
+    return train_full_model(torch, np, TRAIN_ARCH)[:2]
 
 
 def phase_moe_train(torch, np):
     """The MoE training path: ``FTTrainer`` on the full
     ``granite-moe-1b-a400m`` (24 layers, d_model 1024, 32 experts top 8,
     bf16, fp32 AdamW moments, remat)."""
-    return train_full_model(torch, np, MOE_ARCH)
+    return train_full_model(torch, np, MOE_ARCH)[:2]
 
 
-def train_full_model(torch, np, arch: str):
-    """``FTTrainer`` on the full ``arch`` with random weights from seed 0,
-    two simulated hosts of one 4,096-token sequence each, 4 steps (rates
-    over the two warm unprofiled ones); every attention forward and
-    backward on the kernels.  ``mfu`` counts the parameters a token
-    reaches (``ModelConfig.n_active_params``: an MoE layer's routed
-    experts only), held against a count of the held leaves."""
+# falcon-mamba-7b's depth cut from 64 layers for training: a layer holds
+# 105.3 M parameters, the untied embedding and head 0.53 B, and bf16
+# weights, fp32 moments, the gradient sum and one host's fresh gradients
+# take 14 bytes a parameter before activations, so the whole model (7.27
+# B) would need ~100 GB.  At 32 layers (3.90 B) the step peaked at 55.17
+# GB on an H100 80GB HBM3, under 56 GB, so the cut is 40 layers (4.74 B;
+# 66.98 GB peak there, PERF.md section 4)
+SSM_TRAIN_LAYERS = 40
+
+
+def phase_ssm_train(torch, np):
+    """The SSM training path: ``FTTrainer`` on ``falcon-mamba-7b`` at full
+    width (d_model 4,096, d_inner 8,192, state 16, dt_rank 256, vocab
+    65,024, bf16, fp32 AdamW moments, remat), its depth cut to
+    ``SSM_TRAIN_LAYERS``; then two ``grad_step``s of the model at full
+    width and 2 layers on one 4,096-token sequence under the trainer's
+    enforced deterministic algorithms, whose gradients must be
+    bit-equal."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.models import build_model
+    from repro_torch.runtime.ft import deterministic
+    from repro_torch.tree import leaves
+
+    stats, _, scan_fwd, scan_bwd = train_full_model(
+        torch, np, SSM_ARCH, n_layers=SSM_TRAIN_LAYERS)
+    cfg = dataclasses.replace(get_config(SSM_ARCH), n_layers=2)
+    model = build_model(cfg, "cuda")
+    params = model.init(0)
+    tok = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (1, 4097)), dtype=torch.int32, device="cuda")
+    runs = []
+    ms.BWD_DISPATCHES.reset()
+    for _ in range(2):
+        with deterministic(torch.device("cuda")):
+            loss, grads = model.grad_step(params, {"tokens": tok})
+            runs.append((loss, grads))
+    torch.cuda.synchronize()
+    check(ms.BWD_DISPATCHES.kernel_launches == 2 * cfg.n_layers,
+          f"the deterministic grad steps' scan backward: "
+          f"{vars(ms.BWD_DISPATCHES)}")
+    (l0, g0), (l1, g1) = runs
+    same = torch.equal(l0, l1) and all(
+        torch.equal(a, b) for a, b in zip(leaves(g0), leaves(g1)))
+    check(same, f"{SSM_ARCH} (full width, 2 layers): two grad_steps under "
+          "deterministic algorithms differ")
+    say(f"[train {SSM_ARCH}] full width, 2 layers, 4,096 tokens: two "
+        f"grad_steps under enforced deterministic algorithms: loss "
+        f"{float(l0):.6f}, {len(leaves(g0))} gradient leaves bit-equal")
+    del model, params, runs, g0, g1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return scan_fwd, scan_bwd
+
+
+def train_full_model(torch, np, arch: str, n_layers=None):
+    """``FTTrainer`` on the full ``arch`` (its depth cut to ``n_layers``
+    where given) with random weights from seed 0, two simulated hosts of
+    one 4,096-token sequence each, 4 steps (rates over the two warm
+    unprofiled ones); every attention and scan forward and backward on
+    the kernels.  ``mfu`` counts the parameters a token reaches
+    (``ModelConfig.n_active_params``: an MoE layer's routed experts only),
+    held against a count of the held leaves.  Returns (the path's
+    metrics, the attention backward's counts, the scan's forward and
+    backward counts)."""
+    import dataclasses
     import gc
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
     from repro_torch.runtime.ft import FTConfig, FTTrainer
 
     cfg = get_config(arch)
+    cut = ""
+    if n_layers is not None:
+        cut = f" (depth cut from {cfg.n_layers})"
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    n_attn, n_mamba = _mixers(cfg)
     ft = FTConfig(n_hosts=2, global_batch=2, seq_len=4096,
                   ckpt_every=TRAIN_STEPS + 1)
     tokens = ft.global_batch * ft.seq_len
@@ -2038,9 +2389,13 @@ def train_full_model(torch, np, arch: str):
     reckoned = dict(params_gb=2 * n / 1e9, moments_gb=8 * n / 1e9,
                     grad_sum_gb=2 * n / 1e9, fresh_grads_gb=2 * n / 1e9)
     reckoned["total_gb_before_activations"] = sum(reckoned.values())
-    say(f"[train {arch}] {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
-        f"{cfg.d_ff} ({cfg.hidden_act}), vocab {cfg.vocab_size} tied, "
+    mixers = (f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, "
+              f"d_ff {cfg.d_ff} ({cfg.hidden_act})" if n_attn else
+              f"{n_mamba} Mamba mixers of d_inner {cfg.d_inner}, state "
+              f"{cfg.ssm_state}, dt_rank {cfg.dt_rank}")
+    say(f"[train {arch}] {cfg.n_layers} layers{cut}, d_model {cfg.d_model}, "
+        f"{mixers}, vocab {cfg.vocab_size} "
+        f"{'tied' if cfg.tie_embeddings else 'untied'}, "
         f"{cfg.dtype}, {cfg.optimizer_moments} moments, remat={cfg.remat}; "
         f"{n} parameters held (ModelConfig.n_params: {cfg.n_params()}), "
         f"{reached} of them reached by a token (n_active_params: "
@@ -2050,6 +2405,7 @@ def train_full_model(torch, np, arch: str):
         f"reckoned: {json.dumps(reckoned)}")
 
     _reset_attention(fa)
+    _reset_scan(ms)
     step_ms, losses = [], []
     trace = None
     for i in range(TRAIN_STEPS):
@@ -2063,11 +2419,22 @@ def train_full_model(torch, np, arch: str):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     fwd, bwd, routes, bwd_routes = _count_attention(fa)
+    scan_fwd, scan_bwd = ms.DISPATCHES.snapshot(), ms.BWD_DISPATCHES.snapshot()
+    scan_dtypes = dict(ms.DTYPE_LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
           f"{arch} training losses {losses}")
-    want_bwd = cfg.n_layers * ft.n_hosts * TRAIN_STEPS
+    per_layer = ft.n_hosts * TRAIN_STEPS
+    want_scan_bwd = n_mamba * per_layer
+    want_scan_fwd = 2 * want_scan_bwd if cfg.remat else want_scan_bwd
+    check(scan_bwd.launches == scan_bwd.kernel_launches == want_scan_bwd,
+          f"mamba_scan backward launches {vars(scan_bwd)} != {want_scan_bwd}")
+    check(scan_fwd.launches == scan_fwd.kernel_launches == want_scan_fwd,
+          f"mamba_scan forward launches {vars(scan_fwd)} != {want_scan_fwd}")
+    check(scan_dtypes == {"float32": 0, "bfloat16": want_scan_fwd},
+          f"mamba_scan launches by input type {scan_dtypes}")
+    want_bwd = n_attn * per_layer
     want_fwd = 2 * want_bwd if cfg.remat else want_bwd
     check(bwd.launches == bwd.kernel_launches == want_bwd,
           f"flash_attention backward launches {vars(bwd)} != {want_bwd}")
@@ -2081,7 +2448,7 @@ def train_full_model(torch, np, arch: str):
     # model FLOPs: 6 x parameters x tokens, plus causal attention (4
     # flops a visible pair and head dim in the forward, twice that back);
     # an MoE model counts the parameters a token reaches
-    attn = 12 * cfg.n_layers * cfg.n_heads * cfg.head_dim \
+    attn = 12 * n_attn * cfg.n_heads * cfg.head_dim \
         * _visible_pairs(ft.seq_len, ft.seq_len, None) * ft.global_batch
     flops = 6 * (active if cfg.n_experts else n) * tokens + attn
     timed = step_ms[1:-1]  # warm and unprofiled
@@ -2098,7 +2465,10 @@ def train_full_model(torch, np, arch: str):
         host_peak_rss_gb=_host_gb(),
         flash_forward=vars(fwd), flash_backward=vars(bwd),
         flash_backward_routes=bwd_routes,
-        expected_forward=want_fwd, expected_backward=want_bwd)
+        expected_forward=want_fwd, expected_backward=want_bwd,
+        scan_forward=vars(scan_fwd), scan_backward=vars(scan_bwd),
+        expected_scan_forward=want_scan_fwd,
+        expected_scan_backward=want_scan_bwd)
     if trace is not None:
         device_ms, wall_ms, classes, top = trace
         stats.update(traced_device_ms=device_ms, traced_wall_ms=wall_ms,
@@ -2108,7 +2478,7 @@ def train_full_model(torch, np, arch: str):
     del tr
     gc.collect()
     torch.cuda.empty_cache()
-    return stats, bwd
+    return stats, bwd, scan_fwd, scan_bwd
 
 
 def phase_ft(torch, np):
@@ -2191,10 +2561,11 @@ def phase_train_parity(torch, np):
 def train_parity(torch, np, arch: str):
     """One ``train_step`` of the smoke ``arch`` (fp32) from the same state
     on cpu and on cuda: the loss within 1e-4, every parameter after the
-    step within rtol 1e-4 / atol 1e-5; the cuda step's attention on the
-    kernels."""
+    step within rtol 1e-4 / atol 1e-5; the cuda step's attention and scans
+    on the kernels."""
     from repro_torch.configs import smoke_config
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
     from repro_torch.models import build_model
     from repro_torch.tree import leaves, map_tree
 
@@ -2207,13 +2578,17 @@ def train_parity(torch, np, arch: str):
         0, cfg.vocab_size, (4, 65)), dtype=torch.int32)
     state, m_cpu = cpu.train_step(state, {"tokens": tok})
     _reset_attention(fa)
+    _reset_scan(ms)
     gstate, m_gpu = gpu.train_step(gstate, {"tokens": tok.to("cuda")})
     torch.cuda.synchronize()
     fwd, bwd, _, _ = _count_attention(fa)
-    check(fwd.kernel_launches == fwd.launches == cfg.n_layers
-          and bwd.kernel_launches == bwd.launches == cfg.n_layers,
-          f"the cuda smoke train step: forward {vars(fwd)}, "
-          f"backward {vars(bwd)}")
+    n_attn, n_mamba = _mixers(cfg)
+    check(all(c.kernel_launches == c.launches == n for c, n in (
+        (fwd, n_attn), (bwd, n_attn), (ms.DISPATCHES, n_mamba),
+        (ms.BWD_DISPATCHES, n_mamba))),
+          f"the cuda smoke train step: attention forward {vars(fwd)}, "
+          f"backward {vars(bwd)}; scan forward {vars(ms.DISPATCHES)}, "
+          f"backward {vars(ms.BWD_DISPATCHES)}")
     loss_err = abs(float(m_gpu["loss"]) - float(m_cpu["loss"]))
     check(loss_err <= 1e-4, f"train step loss: cpu {float(m_cpu['loss'])} "
           f"cuda {float(m_gpu['loss'])}")
@@ -2228,40 +2603,67 @@ def train_parity(torch, np, arch: str):
         f"(cuda), parameters within {max(errs):.3g}")
 
 
-def phase_moe_train_parity(torch, np):
-    """``train_parity`` of the smoke ``granite-moe-1b-a400m``, then two
-    ``grad_step``s on cuda under the trainer's enforced deterministic
-    algorithms: every op of the MoE dispatch runs without raising, and
-    the two give bit-equal gradients."""
+def deterministic_grad_steps(torch, np, arch: str):
+    """Two ``grad_step``s of the smoke ``arch`` on cuda under the trainer's
+    enforced deterministic algorithms: every op (the MoE dispatch's, the
+    backward kernels') runs without raising, and the two give bit-equal
+    gradients."""
     from repro_torch.configs import smoke_config
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
     from repro_torch.models import build_model
     from repro_torch.runtime.ft import deterministic
     from repro_torch.tree import leaves
 
-    train_parity(torch, np, MOE_ARCH)
-    cfg = smoke_config(MOE_ARCH)
+    cfg = smoke_config(arch)
     model = build_model(cfg, "cuda")
     params = model.init(0)
     tok = torch.as_tensor(np.random.default_rng(6).integers(
         0, cfg.vocab_size, (4, 65)), dtype=torch.int32, device="cuda")
     _reset_attention(fa)
+    _reset_scan(ms)
     runs = []
     for _ in range(2):
         with deterministic(torch.device("cuda")):
             runs.append(model.grad_step(params, {"tokens": tok}))
     torch.cuda.synchronize()
     _, bwd, _, _ = _count_attention(fa)
-    check(bwd.kernel_launches == bwd.launches == 2 * cfg.n_layers,
-          f"the deterministic grad steps' backward: {vars(bwd)}")
+    n_attn, n_mamba = _mixers(cfg)
+    check(bwd.kernel_launches == bwd.launches == 2 * n_attn
+          and ms.BWD_DISPATCHES.kernel_launches
+          == ms.BWD_DISPATCHES.launches == 2 * n_mamba,
+          f"the deterministic grad steps' backward: attention {vars(bwd)}, "
+          f"scan {vars(ms.BWD_DISPATCHES)}")
     (l0, g0), (l1, g1) = runs
     same = torch.equal(l0, l1) and all(
         torch.equal(a, b) for a, b in zip(leaves(g0), leaves(g1)))
-    check(same, f"smoke {MOE_ARCH}: two grad_steps under deterministic "
+    check(same, f"smoke {arch}: two grad_steps under deterministic "
           "algorithms differ")
-    say(f"[train parity] smoke {MOE_ARCH}: two grad_steps on cuda under "
+    say(f"[train parity] smoke {arch}: two grad_steps on cuda under "
         f"enforced deterministic algorithms: loss {float(l0):.6f}, "
         f"{len(leaves(g0))} gradient leaves bit-equal")
+
+
+def phase_moe_train_parity(torch, np):
+    """``train_parity`` and ``deterministic_grad_steps`` of the smoke
+    ``granite-moe-1b-a400m``."""
+    train_parity(torch, np, MOE_ARCH)
+    deterministic_grad_steps(torch, np, MOE_ARCH)
+
+
+def phase_hybrid_parity(torch, np):
+    """The smoke ``jamba-1.5-large-398b`` (fp32, its int8 cache kept):
+    ``smoke_parity``, then ``train_parity`` and
+    ``deterministic_grad_steps``, which run the scan's backward kernel,
+    attention's and the MoE dispatch together."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+
+    smoke_parity(torch, np, HYBRID_ARCH,
+                 [fa.DISPATCHES, dec.DISPATCHES, ms.DISPATCHES])
+    train_parity(torch, np, HYBRID_ARCH)
+    deterministic_grad_steps(torch, np, HYBRID_ARCH)
 
 
 def main() -> int:
@@ -2299,14 +2701,19 @@ def main() -> int:
         run(phase_ssm_parity, torch, np)
         flash[MOE_ARCH], decode[MOE_ARCH] = run(phase_moe_model, torch, np)
         flash[GROK_ARCH], decode[GROK_ARCH] = run(phase_grok_model, torch, np)
+        (flash[HYBRID_ARCH], decode[HYBRID_ARCH],
+         hybrid_scans) = run(phase_hybrid_model, torch, np)
         run(phase_moe_parity, torch, np)
         bres = run(phase_attention_bwd, torch,
                    ares[("flash_attention", "path", "bfloat16")]["device_ms"])
+        sbres = run(phase_mamba_bwd, torch)
         _, bwd[TRAIN_ARCH] = run(phase_train, torch, np)
         _, bwd[MOE_ARCH] = run(phase_moe_train, torch, np)
+        train_scans, scan_bwd = run(phase_ssm_train, torch, np)
         run(phase_ft, torch, np)
         run(phase_train_parity, torch, np)
         run(phase_moe_train_parity, torch, np)
+        run(phase_hybrid_parity, torch, np)
         leaked = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m == "repro" or m.startswith("repro."))
@@ -2356,12 +2763,16 @@ def main() -> int:
             "shape": f"{res['shape']},bf16",
         })
     mpath = mres["path-bf16"]
+    scans_by_path = {f"{SSM_ARCH} serve": scans.kernel_launches,
+                     f"{SSM_ARCH} train": train_scans.kernel_launches,
+                     f"{HYBRID_ARCH} serve": hybrid_scans.kernel_launches}
     kernels.append({
         "name": "mamba_scan",
         "route": "cuda",
         "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan/kernel.py:54",
-        "launches": scans.kernel_launches,
+        "launches": sum(scans_by_path.values()),
+        "launches_by_path": scans_by_path,
         "max_abs_err": max(r["max_abs_err"] for r in mres.values()),
         "ms": mpath["ms"],
         "plain_ms": mpath["plain_ms"],
@@ -2413,6 +2824,26 @@ def main() -> int:
         "library_ms": bpath["library_ms"],
         "device_ms": bpath["device_ms"],
         "shape": f"{bpath['shape']},bf16",
+    })
+    spath = sbres[("path", "bfloat16")]
+    kernels.append({
+        "name": "mamba_scan_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan_bwd.cu",
+        "replaces": "src/repro/kernels/mamba_scan/kernel.py:54 (its "
+                    "gradient: no Pallas backward; JAX differentiates the "
+                    "jnp reference, src/repro/models/mamba.py:107-111)",
+        "launches": scan_bwd.kernel_launches,
+        "launches_by_path": {SSM_ARCH: scan_bwd.kernel_launches},
+        "max_abs_err": max(r["max_abs_err"] for r in sbres.values()),
+        "ms": spath["ms"],
+        "plain_ms": spath["plain_ms"],
+        "bound_ms": spath["bound_ms"],
+        "bound_by": spath["bound_by"],
+        "library_ms": None,
+        "device_ms": spath["device_ms"],
+        "sfu_ms": spath["sfu_ms"],
+        "shape": f"{spath['shape']},bf16",
     })
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

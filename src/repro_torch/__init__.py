@@ -10,9 +10,10 @@ clock in ``core.vclock``), ``storage``, ``index``, ``query``, ``obs``,
 ``cluster``, ``serve.bigset_service``, ``launch.serve_bigset`` — with the
 ``dot_seen`` kernel; the ``clock_ops`` entry point; the model serve path
 (``configs``, ``models``, ``serve.engine``, ``launch.serve``) with the
-attention and scan kernels; and training of the dense family (``train``,
-``checkpoint``, ``runtime``, ``launch.train``) with attention's backward
-kernel.  ``ROADMAP.md`` lists what is left.
+attention and scan kernels; and training of the dense, MoE, SSM and
+hybrid families (``train``, ``checkpoint``, ``runtime``, ``launch.train``)
+with the backward kernels of attention and of the scan.  ``ROADMAP.md``
+lists what is left.
 """
 # core before index: index.postings -> core -> bigset -> index.postings
 from . import core  # noqa: F401

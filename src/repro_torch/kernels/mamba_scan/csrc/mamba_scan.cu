@@ -38,6 +38,11 @@
 //   order the loads around it.  The block sums the K parts of each (step,
 //   channel) and writes y in rows of 64 channels one chunk later, from a
 //   second buffer of parts, so a chunk costs one barrier.
+// Train variant (mamba_scan_train_launch): the kernel instantiated with
+// kEdges also writes the state entering each chunk, edges [B, Dm,
+// ceil(T / kChunk), N] fp32 (chunk 0's is zero), from which the backward
+// (mamba_scan_bwd.cu) recomputes a chunk's states; the serve launch
+// instantiates it without, so its code is the same as before.
 // Any T >= 1, any Dm and 1 <= N <= 32.  Rows whose bytes (or whose
 // tensors' starts) are not a multiple of 16 are staged by plain loads.
 //
@@ -179,14 +184,16 @@ __host__ __device__ constexpr size_t smem_bytes() {
 }
 
 // K groups of 64 threads, each thread kStates states of a channel;
-// grid (ceil(Dm / 64), B), smem_bytes<T, K>() of shared memory.
-template <typename T, int K>
+// grid (ceil(Dm / 64), B), smem_bytes<T, K>() of shared memory; kEdges:
+// also write the state entering each chunk to edges.
+template <typename T, int K, bool kEdges>
 __global__ void __launch_bounds__(kChannels * K)
 mamba_scan_kernel(const T* __restrict__ x, const T* __restrict__ delta,
                   const float* __restrict__ A, const T* __restrict__ Bm,
                   const T* __restrict__ Cm, const float* __restrict__ Dp,
-                  T* __restrict__ y, float* __restrict__ h_out, int T_len,
-                  int Dm, int N, bool aligned) {
+                  T* __restrict__ y, float* __restrict__ h_out,
+                  float* __restrict__ edges, int T_len, int Dm, int N,
+                  bool aligned) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kThreads = K * kChannels;
   constexpr int np = kStates * K;  // states, padded with zero B and C
@@ -298,6 +305,16 @@ mamba_scan_kernel(const T* __restrict__ x, const T* __restrict__ delta,
     }
     cp_async_commit();
     if (chunk > 0) write_y(chunk - 1);
+    if (kEdges && live) {
+      // the state entering this chunk
+      float* e = edges + ((static_cast<int64_t>(b) * Dm + d) * n_chunks +
+                          chunk) * N;
+#pragma unroll
+      for (int j = 0; j < kStates; ++j) {
+        const int n = k * kStates + j;
+        if (n < N) e[n] = h[j];
+      }
+    }
 
     const T* xs = xs_of(chunk);
     const T* ds = xs + kChunk * kChannels;
@@ -358,11 +375,11 @@ bool rows_aligned16(const void* p, const void* q, int64_t row_bytes) {
            static_cast<uintptr_t>(row_bytes)) % 16) == 0;
 }
 
-template <typename T, int K>
+template <typename T, int K, bool kEdges>
 int launch(const void* x, const void* delta, const void* A, const void* Bm,
-           const void* Cm, const void* Dp, void* y, void* h_out, int batch,
-           int T_len, int Dm, int N, cudaStream_t stream) {
-  auto kernel = mamba_scan_kernel<T, K>;
+           const void* Cm, const void* Dp, void* y, void* h_out, void* edges,
+           int batch, int T_len, int Dm, int N, cudaStream_t stream) {
+  auto kernel = mamba_scan_kernel<T, K, kEdges>;
   constexpr int smem = static_cast<int>(smem_bytes<T, K>());
   // above 48 KB only as opted-in dynamic shared memory; set once per
   // instantiation, outside any CUDA graph capture of a launch
@@ -380,24 +397,50 @@ int launch(const void* x, const void* delta, const void* A, const void* Bm,
       static_cast<const T*>(x), static_cast<const T*>(delta),
       static_cast<const float*>(A), static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), static_cast<const float*>(Dp),
-      static_cast<T*>(y), static_cast<float*>(h_out), T_len, Dm, N, aligned);
+      static_cast<T*>(y), static_cast<float*>(h_out),
+      static_cast<float*>(edges), T_len, Dm, N, aligned);
   return static_cast<int>(cudaGetLastError());
 }
 
 
 template <typename T>
 int dispatch(const void* x, const void* delta, const void* A, const void* Bm,
-             const void* Cm, const void* Dp, void* y, void* h_out, int batch,
-             int T_len, int Dm, int N, cudaStream_t stream) {
+             const void* Cm, const void* Dp, void* y, void* h_out,
+             void* edges, int batch, int T_len, int Dm, int N,
+             cudaStream_t stream) {
   switch ((N + kStates - 1) / kStates) {
 #define MAMBA_SCAN_CASE(K)                                                 \
   case K:                                                                  \
-    return launch<T, K>(x, delta, A, Bm, Cm, Dp, y, h_out, batch, T_len,   \
-                        Dm, N, stream);
+    return edges ? launch<T, K, true>(x, delta, A, Bm, Cm, Dp, y, h_out,   \
+                                      edges, batch, T_len, Dm, N, stream)  \
+                 : launch<T, K, false>(x, delta, A, Bm, Cm, Dp, y, h_out,  \
+                                       edges, batch, T_len, Dm, N, stream);
     MAMBA_SCAN_CASE(1) MAMBA_SCAN_CASE(2) MAMBA_SCAN_CASE(3)
     MAMBA_SCAN_CASE(4) MAMBA_SCAN_CASE(5) MAMBA_SCAN_CASE(6)
     MAMBA_SCAN_CASE(7) MAMBA_SCAN_CASE(8)
 #undef MAMBA_SCAN_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Launch on `stream`, with edges or without (nullptr); returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for N
+// outside [1, 32], a batch past the grid or an unknown dtype.
+int scan(const void* x, const void* delta, const void* A, const void* Bm,
+         const void* Cm, const void* Dp, void* y, void* h_out, void* edges,
+         int batch, int T, int Dm, int N, int dtype, void* stream) {
+  if (N < 1 || N > 32 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch <= 0 || T <= 0 || Dm <= 0) return static_cast<int>(cudaSuccess);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return dispatch<float>(x, delta, A, Bm, Cm, Dp, y, h_out, edges, batch,
+                             T, Dm, N, s);
+    case 1:
+      return dispatch<__nv_bfloat16>(x, delta, A, Bm, Cm, Dp, y, h_out,
+                                     edges, batch, T, Dm, N, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -416,18 +459,18 @@ extern "C" int mamba_scan_launch(const void* x, const void* delta,
                                  const void* Dp, void* y, void* h_out,
                                  int batch, int T, int Dm, int N, int dtype,
                                  void* stream) {
-  if (N < 1 || N > 32 || batch > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (batch <= 0 || T <= 0 || Dm <= 0) return static_cast<int>(cudaSuccess);
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return dispatch<float>(x, delta, A, Bm, Cm, Dp, y, h_out, batch, T,
-                             Dm, N, s);
-    case 1:
-      return dispatch<__nv_bfloat16>(x, delta, A, Bm, Cm, Dp, y, h_out,
-                                     batch, T, Dm, N, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return scan(x, delta, A, Bm, Cm, Dp, y, h_out, nullptr, batch, T, Dm, N,
+              dtype, stream);
+}
+
+// mamba_scan_launch that also writes edges [B, Dm, ceil(T / 32), N] fp32,
+// the state entering each chunk of 32 steps (training's forward).
+extern "C" int mamba_scan_train_launch(const void* x, const void* delta,
+                                       const void* A, const void* Bm,
+                                       const void* Cm, const void* Dp,
+                                       void* y, void* h_out, void* edges,
+                                       int batch, int T, int Dm, int N,
+                                       int dtype, void* stream) {
+  return scan(x, delta, A, Bm, Cm, Dp, y, h_out, edges, batch, T, Dm, N,
+              dtype, stream);
 }

@@ -11,25 +11,81 @@ returns ``(y, h_T)`` and, on the card, every call is the kernel.
 Pallas kernel's contract: it casts inside its body); ``A`` and ``D`` are
 fp32; ``y`` comes back in ``x``'s type and ``h_T`` in fp32.
 
-Every call is tallied in :data:`DISPATCHES` (rows = channels, ``B * D``);
-``kernel_launches`` counts the calls that launched the CUDA kernel, and
-:data:`DTYPE_LAUNCHES` those launches by the inputs' type.
-``mamba_step`` (one decode token) has no kernel in either package: it is
-plain PyTorch on every device.
+Under autograd (grad enabled and an input that requires grad) a call goes
+through :class:`MambaScanFunction`: its forward is the kernel's train
+variant, which also writes the state entering each chunk of 32 steps, and
+its backward :func:`mamba_scan_bwd` — the CUDA backward kernel on the
+card, the plain :func:`.ref.mamba_scan_bwd_ref` on the CPU.  ``h_T`` takes
+no gradient there (training uses only ``y``, as the JAX package's scan
+returns only ``y``): it comes back detached.
+
+Every forward call is tallied in :data:`DISPATCHES` (rows = channels,
+``B * D``); ``kernel_launches`` counts the calls that launched the CUDA
+kernel, and :data:`DTYPE_LAUNCHES` those launches by the inputs' type.
+:data:`BWD_DISPATCHES` tallies the backward calls likewise; one call is
+two kernel launches (the gradient and the sums of its partials) and
+counts once.  ``mamba_step`` (one decode token) has no kernel in either
+package: it is plain PyTorch on every device.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..ledger import DispatchStats
-from .kernel import MAX_BATCH, MAX_STATE, mamba_scan_cuda
-from .ref import mamba_scan_ref, mamba_step_ref
+from .kernel import (MAX_BATCH, MAX_STATE, mamba_scan_bwd_cuda,
+                     mamba_scan_cuda, n_chunks)
+from .ref import mamba_scan_bwd_ref, mamba_scan_ref, mamba_step_ref
 
 DISPATCHES = DispatchStats()
+BWD_DISPATCHES = DispatchStats()
 INPUT_DTYPES = (torch.float32, torch.bfloat16)
 DTYPE_LAUNCHES = {"float32": 0, "bfloat16": 0}
+
+
+def check_scan_inputs(name: str, x, delta, A, Bm, Cm, D) -> None:
+    """Types, shapes, contiguity and device of the scan's inputs; on a
+    CUDA tensor, what the kernels take."""
+    named = (("x", x), ("delta", delta), ("A", A), ("Bm", Bm), ("Cm", Cm),
+             ("D", D))
+    for nm, t in named:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: {nm} must be a torch.Tensor")
+    if x.dtype not in INPUT_DTYPES:
+        raise TypeError(
+            f"{name}: x must be float32 or bfloat16, got {x.dtype}")
+    for nm, t in named:
+        want = torch.float32 if nm in ("A", "D") else x.dtype
+        if t.dtype != want:
+            raise TypeError(f"{name}: {nm} must be {want}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {nm} must be contiguous")
+        if t.device != x.device:
+            raise ValueError(f"{name}: {nm} is on {t.device}, x on {x.device}")
+    if x.dim() != 3 or delta.shape != x.shape:
+        raise ValueError(f"{name}: x and delta must share one [B, T, D] shape")
+    Bsz, T, Dm = x.shape
+    if A.dim() != 2 or A.shape[0] != Dm:
+        raise ValueError(f"{name}: A must be [D={Dm}, N], got {tuple(A.shape)}")
+    N = A.shape[1]
+    for nm, t in (("Bm", Bm), ("Cm", Cm)):
+        if t.shape != (Bsz, T, N):
+            raise ValueError(
+                f"{name}: {nm} must be [{Bsz}, {T}, {N}], got {tuple(t.shape)}")
+    if D.shape != (Dm,):
+        raise ValueError(f"{name}: D must be [{Dm}], got {tuple(D.shape)}")
+    if T < 1 or N < 1:
+        raise ValueError(f"{name}: needs T >= 1 and N >= 1, got T={T}, N={N}")
+    if x.device.type == "cuda":
+        if N > MAX_STATE:
+            raise ValueError(
+                f"{name}: the CUDA kernel takes N <= {MAX_STATE}, got {N}")
+        if Bsz > MAX_BATCH:
+            raise ValueError(
+                f"{name}: the CUDA kernel takes B <= {MAX_BATCH}, got {Bsz}")
+    elif x.device.type != "cpu":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
 
 
 def mamba_scan(
@@ -41,53 +97,79 @@ def mamba_scan(
     D: torch.Tensor,      # [D]        fp32
 ) -> Tuple[torch.Tensor, torch.Tensor]:  # y [B, T, D], h_T [B, D, N] fp32
     """Selective scan from a zero state: ``y`` and the final state."""
-    named = (("x", x), ("delta", delta), ("A", A), ("Bm", Bm), ("Cm", Cm),
-             ("D", D))
-    for nm, t in named:
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"mamba_scan: {nm} must be a torch.Tensor")
-    if x.dtype not in INPUT_DTYPES:
-        raise TypeError(
-            f"mamba_scan: x must be float32 or bfloat16, got {x.dtype}")
-    for nm, t in named:
-        want = torch.float32 if nm in ("A", "D") else x.dtype
-        if t.dtype != want:
-            raise TypeError(f"mamba_scan: {nm} must be {want}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"mamba_scan: {nm} must be contiguous")
-        if t.device != x.device:
-            raise ValueError(f"mamba_scan: {nm} is on {t.device}, x on {x.device}")
-    if x.dim() != 3 or delta.shape != x.shape:
-        raise ValueError("mamba_scan: x and delta must share one [B, T, D] shape")
-    Bsz, T, Dm = x.shape
-    if A.dim() != 2 or A.shape[0] != Dm:
-        raise ValueError(f"mamba_scan: A must be [D={Dm}, N], got {tuple(A.shape)}")
-    N = A.shape[1]
-    for nm, t in (("Bm", Bm), ("Cm", Cm)):
-        if t.shape != (Bsz, T, N):
-            raise ValueError(
-                f"mamba_scan: {nm} must be [{Bsz}, {T}, {N}], got {tuple(t.shape)}")
-    if D.shape != (Dm,):
-        raise ValueError(f"mamba_scan: D must be [{Dm}], got {tuple(D.shape)}")
-    if T < 1 or N < 1:
-        raise ValueError(f"mamba_scan: needs T >= 1 and N >= 1, got T={T}, N={N}")
-    if x.device.type == "cuda":
-        if N > MAX_STATE:
-            raise ValueError(
-                f"mamba_scan: the CUDA kernel takes N <= {MAX_STATE}, got {N}")
-        if Bsz > MAX_BATCH:
-            raise ValueError(
-                f"mamba_scan: the CUDA kernel takes B <= {MAX_BATCH}, got {Bsz}")
-    elif x.device.type != "cpu":
-        raise ValueError(f"mamba_scan: no kernel for device {x.device}")
+    check_scan_inputs("mamba_scan", x, delta, A, Bm, Cm, D)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, delta, A, Bm, Cm, D)):
+        return MambaScanFunction.apply(x, delta, A, Bm, Cm, D)
+    return _forward(x, delta, A, Bm, Cm, D, with_edges=False)[:2]
+
+
+def _forward(x, delta, A, Bm, Cm, D, *, with_edges: bool):
+    """``(y, h_T, edges or None)``: the plain version on the CPU (no
+    edges: its backward recomputes the states), the kernel on the card,
+    tallied in :data:`DISPATCHES`."""
+    Bsz, _, Dm = x.shape
     DISPATCHES.launches += 1
     DISPATCHES.rows += Bsz * Dm
     if x.device.type == "cpu":
-        return mamba_scan_ref(x, delta, A, Bm, Cm, D)
-    out = mamba_scan_cuda(x, delta, A, Bm, Cm, D)
+        return (*mamba_scan_ref(x, delta, A, Bm, Cm, D), None)
+    out = mamba_scan_cuda(x, delta, A, Bm, Cm, D, with_edges=with_edges)
     DISPATCHES.kernel_launches += 1
     DTYPE_LAUNCHES[str(x.dtype).removeprefix("torch.")] += 1
-    return out
+    return out if with_edges else (*out, None)
+
+
+def mamba_scan_bwd(
+    x: torch.Tensor, delta: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+    Cm: torch.Tensor, D: torch.Tensor, dy: torch.Tensor,
+    edges: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """``(dx, ddelta, dA, dBm, dCm, dD)`` of ``y`` of :func:`mamba_scan`
+    against its gradient ``dy`` (``[B, T, D]`` in ``x``'s type), each in
+    its input's type.  On the card ``edges`` is the train variant's
+    ``[B, D, ceil(T / 32), N]`` fp32 states entering each chunk; the
+    CPU's plain version recomputes the states and takes none."""
+    check_scan_inputs("mamba_scan_bwd", x, delta, A, Bm, Cm, D)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
+            or not dy.is_contiguous():
+        raise ValueError(
+            "mamba_scan_bwd: dy must be a contiguous "
+            f"{tuple(x.shape)} {x.dtype} tensor on {x.device}")
+    Bsz, T, Dm = x.shape
+    BWD_DISPATCHES.launches += 1
+    BWD_DISPATCHES.rows += Bsz * Dm
+    if x.device.type == "cpu":
+        return mamba_scan_bwd_ref(x, delta, A, Bm, Cm, D, dy)
+    want = (Bsz, Dm, n_chunks(T), A.shape[1])
+    if edges is None or tuple(edges.shape) != want \
+            or edges.dtype != torch.float32 or edges.device != x.device \
+            or not edges.is_contiguous():
+        raise ValueError(
+            f"mamba_scan_bwd: edges must be a contiguous fp32 {want} tensor "
+            f"on {x.device} (the train variant's)")
+    grads = mamba_scan_bwd_cuda(x, delta, A, Bm, Cm, D, dy, edges)
+    BWD_DISPATCHES.kernel_launches += 1
+    return grads
+
+
+class MambaScanFunction(torch.autograd.Function):
+    """Differentiable :func:`mamba_scan`: the kernel's train variant and
+    the backward kernel on the card, their plain versions on the CPU.
+    It keeps only its saved tensors (the inputs and the edges), so a
+    recompute under ``torch.utils.checkpoint`` runs the forward again, and
+    is counted again."""
+
+    @staticmethod
+    def forward(ctx, x, delta, A, Bm, Cm, D):
+        y, hT, edges = _forward(x, delta, A, Bm, Cm, D, with_edges=True)
+        ctx.save_for_backward(x, delta, A, Bm, Cm, D, edges)
+        ctx.mark_non_differentiable(hT)
+        return y, hT
+
+    @staticmethod
+    def backward(ctx, dy, _dhT):
+        x, delta, A, Bm, Cm, D, edges = ctx.saved_tensors
+        return mamba_scan_bwd(x, delta, A, Bm, Cm, D, dy.contiguous(), edges)
 
 
 def mamba_step(x, delta, A, Bm, Cm, D, h) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -7,13 +7,14 @@ Usage:
       --preset smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch granite-moe-1b-a400m --preset smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch jamba-1.5-large-398b --preset smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b \\
       --preset full                      # on the card, bf16, random weights
 
 PyTorch port of :mod:`repro.launch.serve`, with ``--device`` (default
 ``cuda``: attention and the selective scan run the CUDA kernels).  The
-hybrid (Mamba beside attention) and the encoder are not ported yet and
-raise.
+encoder-decoder is not ported yet and raises.
 """
 from __future__ import annotations
 

@@ -11,13 +11,17 @@ Usage:
       --preset smoke --device cpu --steps 5 --crash-at 3
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch granite-moe-1b-a400m --preset smoke --device cpu --steps 5
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch falcon-mamba-7b --preset smoke --device cpu --steps 5
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch jamba-1.5-large-398b --preset smoke --device cpu --steps 5
   PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-4b \\
       --preset full --steps 3 --global-batch 2 --seq-len 4096
 
 PyTorch port of :mod:`repro.launch.train`, with ``--device`` (default
-``cuda``: attention's forward and backward run the CUDA kernels).  The
-dense and MoE families train; Mamba's ``train`` mode and the encoder are
-not ported yet and raise.
+``cuda``: the forward and backward of attention and of the selective
+scan run the CUDA kernels).  The dense, MoE, SSM and hybrid families
+train; the encoder-decoder is not ported yet and raises.
 """
 from __future__ import annotations
 

@@ -1,11 +1,10 @@
 """Model substrate: layers, attention, Mamba, dense and MoE FFNs, transformer
 assembly.
 
-PyTorch port of :mod:`repro.models`: the serve path of the dense, MoE and
-SSM architectures, and training (``loss_fn`` / ``grad_step`` /
-``train_step``) of the dense and MoE families.  Not yet ported: the hybrid
-(Mamba beside attention), the encoder, Mamba's ``train`` mode and
-``sharding``.
+PyTorch port of :mod:`repro.models`: the serve path and training
+(``loss_fn`` / ``grad_step`` / ``train_step``) of the dense, MoE, SSM and
+hybrid (Mamba beside attention) architectures.  Not yet ported: the
+encoder and ``sharding``.
 """
 from .model import Model, TrainState, build_model
 

@@ -1,4 +1,4 @@
-"""Mamba-1 block (falcon-mamba mixer layers).
+"""Mamba-1 block (falcon-mamba, jamba mixer layers).
 
 PyTorch port of :mod:`repro.models.mamba`: in_proj → depthwise causal
 conv1d → SiLU → selective scan → gate → out_proj.  Prefill runs the scan
@@ -15,7 +15,10 @@ Prefill keeps the last ``ssm_conv - 1`` inputs as conv history; a prompt
 shorter than that keeps only its T rows, and the engine's splice pads the
 missing rows with zeros *after* them, so decode reads a zero as the newest
 input.  The JAX package does the same, and the port keeps it for parity
-(ROADMAP C5).  ``mode="train"`` comes with the training slice of the port.
+(ROADMAP C5).  ``mode="train"`` runs the same scan and returns no cache,
+as the JAX block does; under autograd the scan goes through
+:class:`~repro_torch.kernels.mamba_scan.MambaScanFunction`, whose backward
+is the scan's CUDA backward kernel on the card.
 """
 from __future__ import annotations
 
@@ -91,10 +94,10 @@ def mamba_forward(
     cache: Optional[Dict] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (out ``[B, T, d_model]``, new cache): a fresh cache for
-    prefill, ``cache`` itself (updated in place) for decode."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(
-            f"mamba mode {mode!r} comes with the training slice of the port")
+    prefill, ``cache`` itself (updated in place) for decode, None for
+    train."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mamba mode {mode!r}")
     B, T, _ = x.shape
     dt = x.dtype
 
@@ -128,10 +131,12 @@ def mamba_forward(
         # views of one projection: copied, T x N values each)
         y, hT = mamba_scan(u, delta, A, Bm.contiguous(), Cm.contiguous(),
                            p["Dp"])
-        kw = cfg.ssm_conv
-        # a copy: a view of xi would keep the whole [B, T, 2Di] xz alive
-        new_cache = {"conv": xi[:, -(kw - 1):, :].to(dt).contiguous(),
-                     "h": hT}
+        new_cache = None
+        if mode == "prefill":
+            kw = cfg.ssm_conv
+            # a copy: a view of xi would keep the whole [B, T, 2Di] xz alive
+            new_cache = {"conv": xi[:, -(kw - 1):, :].to(dt).contiguous(),
+                         "h": hT}
 
     y = y * F.silu(z)
     return y @ p["out_proj"], new_cache

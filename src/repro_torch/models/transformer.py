@@ -1,4 +1,4 @@
-"""Model assembly: the decoder-only LM of the dense, MoE and SSM
+"""Model assembly: the decoder-only LM of the dense, MoE, SSM and hybrid
 architectures.
 
 PyTorch port of :mod:`repro.models.transformer`.  The JAX package runs its
@@ -14,20 +14,20 @@ and the caches of the two packages compare directly; layer ``i`` of the
 groups reads position ``i % group_len`` at index ``i // group_len``.
 
 Modes: ``train`` (logits), ``prefill`` (logits + cache), ``decode`` (one
-token + cache update, in place); the Mamba mixers of the SSM family serve
-``prefill`` and ``decode``.  ``forward`` returns the MoE layers' summed
-load-balance loss beside its output, as the JAX ``forward`` does (0 for a
-model without MoE layers).  In ``train`` mode under autograd, ``cfg.remat``
-wraps each layer in ``torch.utils.checkpoint`` (non-reentrant), where the
-JAX package wraps each scanned group or tail layer in ``jax.checkpoint``:
-the values are the same, only what is kept for the backward differs (a
-layer's input; the rest is recomputed, the MoE router too, which on one
-device with the same input selects the same experts).  Mamba mixers
-outside the SSM family (the hybrid) and the encoder-decoder raise
-:class:`NotImplementedError`: they come with later slices of the port.  The
-vision frontend's ``patch_embeds`` (precomputed, as in the JAX package) are
-spliced over the leading positions after the embedding scale and before the
-learned positions, as the JAX ``forward`` does.
+token + cache update, in place), for attention and Mamba mixers alike; a
+hybrid's groups mix the two, and its cache holds each position's kind.
+``forward`` returns the MoE layers' summed load-balance loss beside its
+output, as the JAX ``forward`` does (0 for a model without MoE layers).
+In ``train`` mode under autograd, ``cfg.remat`` wraps each layer in
+``torch.utils.checkpoint`` (non-reentrant), where the JAX package wraps
+each scanned group or tail layer in ``jax.checkpoint``: the values are
+the same, only what is kept for the backward differs (a layer's input;
+the rest is recomputed, the MoE router too, which on one device with the
+same input selects the same experts).  The encoder-decoder raises
+:class:`NotImplementedError`: it comes with a later slice of the port.
+The vision frontend's ``patch_embeds`` (precomputed, as in the JAX
+package) are spliced over the leading positions after the embedding
+scale and before the learned positions, as the JAX ``forward`` does.
 """
 from __future__ import annotations
 
@@ -44,23 +44,13 @@ from .mamba import init_mamba, init_mamba_cache, mamba_forward
 from .mlp import dense_ffn, init_dense_ffn, init_moe_ffn, moe_ffn
 
 
-def _unsupported(cfg: ModelConfig, mixer: str) -> None:
+def layer_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
+    """(mixer, ffn) of every layer, in order; raises on what the port lacks."""
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder comes with the encoder-decoder "
             "slice of the port")
-    if mixer == "mamba" and cfg.family != "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba mixers beside attention come with the hybrid "
-            "slice of the port")
-
-
-def layer_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
-    """(mixer, ffn) of every layer, in order; raises on what the port lacks."""
-    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
-    for mixer, _ in kinds:
-        _unsupported(cfg, mixer)
-    return kinds
+    return [cfg.layer_kind(i) for i in range(cfg.n_layers)]
 
 
 def _plan(cfg: ModelConfig) -> Tuple[int, int, int]:

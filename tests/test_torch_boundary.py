@@ -73,6 +73,7 @@ def test_port_modules_found():
                 "kernels.decode_attention.ops", "configs.falcon_mamba_7b",
                 "models.mamba", "kernels.mamba_scan.ops",
                 "kernels.mamba_scan.kernel", "kernels.mamba_scan.ref",
+                "configs.jamba_1_5_large_398b", "models.mlp",
                 "kernels.clock_ops", "kernels.clock_ops.ops",
                 "kernels.clock_ops.kernel", "kernels.clock_ops.ref",
                 "tree", "train.data", "train.optimizer", "train.delta_sync",
@@ -86,6 +87,8 @@ def test_port_modules_found():
     for name in ("flash_attention_bwd.cu", "hopper_tc.cuh"):
         assert (PORT / "kernels" / "flash_attention" / "csrc"
                 / name).is_file()
+    assert (PORT / "kernels" / "mamba_scan" / "csrc"
+            / "mamba_scan_bwd.cu").is_file()
 
 
 def test_clock_ops_import_loads_no_jax_and_builds_nothing(tmp_path):

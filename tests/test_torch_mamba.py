@@ -346,9 +346,3 @@ def test_block_decode_writes_the_given_cache_in_place():
     assert conv[:, -1].abs().sum() > 0 and h.abs().sum() > 0
     assert h.dtype == torch.float32
 
-
-def test_block_has_no_train_mode_yet():
-    _, tcfg, _, tp = _block()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        mamba_forward(tp, tcfg, torch.zeros((1, 3, tcfg.d_model)),
-                      mode="train")

@@ -1,11 +1,11 @@
 """Per-architecture training smoke tests of the port, on the CPU: the case
 ``TestSmoke.test_forward_and_train_step`` of ``tests/test_archs.py`` for
-every architecture the port trains (the dense family, the VLM backbone
-and the MoE family), with the initial loss, the MoE router's load-balance
-term included, held to the JAX package's from the same parameters (rtol
-1e-5); the architectures whose training is not ported yet (Mamba's
-``train`` mode, the encoder-decoder, the hybrid) raise
-``NotImplementedError`` rather than train something else.
+every architecture the port trains (the dense family, the VLM backbone,
+the MoE family, the SSM and the hybrid), with the initial loss, the MoE
+router's load-balance term included, held to the JAX package's from the
+same parameters (rtol 1e-5); the architecture whose training is not
+ported yet (the encoder-decoder) raises ``NotImplementedError`` rather
+than train something else.
 """
 import numpy as np
 import pytest
@@ -19,7 +19,8 @@ from repro_torch.configs import ARCHS, smoke_config
 from repro_torch.interop import train_state_from_jax
 from repro_torch.models import build_model
 
-TRAINED = ["gemma-7b", "gemma3-27b", "granite-moe-1b-a400m", "grok-1-314b",
+TRAINED = ["falcon-mamba-7b", "gemma-7b", "gemma3-27b",
+           "granite-moe-1b-a400m", "grok-1-314b", "jamba-1.5-large-398b",
            "minitron-4b", "mistral-large-123b", "pixtral-12b"]
 NOT_YET = sorted(set(ARCHS) - set(TRAINED))
 
