@@ -120,18 +120,22 @@ Phases, each printed as it runs; any failure exits non-zero:
     high) must fail both checks; device, wrapper, plain
     and SDPA backward ms beside the bound; then the forward at the serve
     shape of the attention phase with and without the log-sum-exp output;
-16. mamba backward — the scan's backward kernel
-    (``mamba_scan_bwd.cu``) from the forward's train variant's chunk
-    edges, against its plain version at the SSM training path's shape
+16. mamba backward — the scan's backward (``mamba_scan_bwd.cu``: a
+    carry launch across T's segments, the gradient, the fixed-order sums)
+    from the forward's train variant's edges (a state every 16 steps),
+    against its plain version at the SSM training path's shape
     (``falcon-mamba-7b``: T = 4,096, D = 8,192, N = 16), at
     ``jamba-1.5-large-398b``'s width (D = 16,384), a ragged T = 63 and
     N = 8 at B = 2, each in fp32 and bf16 (``MAMBA_BWD_TOL``), with two
     calls bit-identical and the train variant's ``y`` and ``h_T`` equal to
     the serve launch's; the plain version against fp32 autograd of the
-    plain scan; at the path shape a wrong gradient (the carry
-    ``a_{t+1} g_{t+1}`` dropped at the first chunk edge) must fail the
-    check; device, wrapper and plain ms beside the bound and the floor of
-    the exps;
+    plain scan; at every shape two wrong gradients (the carry
+    ``a_{t+1} g_{t+1}`` dropped at the first chunk edge, and at the first
+    segment's end) must fail the check; device ms of each launch (from a
+    profiler trace), wrapper and plain ms beside the bound (FLOPs, an FMA
+    as two), the floor of the exps, the plan's exps a state and step (its
+    arithmetic, not a measurement), the resident warps an SM and the
+    train variant's and serve launch's device ms;
 17. train — the training path: ``FTTrainer`` on the full 32-layer
     ``minitron-4b`` (bf16, fp32 AdamW moments, remat) with random weights
     (seed 0), two simulated hosts of one 4,096-token sequence each, 4
@@ -248,7 +252,8 @@ PTXAS_KERNELS = ("flash_attention_kernel_tc", "decode_attention_kernel_split",
                  "dot_seen_kernel", "clock_merge_kernel",
                  "clock_popcount_kernel", "attn_bwd_dkdv", "attn_bwd_dq",
                  "attn_bwd_dkdv_tc", "attn_bwd_dq_tc",
-                 "mamba_scan_bwd_kernel", "mamba_scan_bwd_reduce_kernel")
+                 "mamba_scan_bwd_kernel", "mamba_scan_bwd_carry_kernel",
+                 "mamba_scan_bwd_reduce_kernel")
 _PTXAS_TYPES = {"13__nv_bfloat16": "bf16", "f": "f32"}
 
 
@@ -2057,38 +2062,101 @@ def _scan_grad_ok(g, ref, dtype: str) -> bool:
     return close and _grad_err(g, w)[1] <= rel
 
 
-def _wrong_scan_bwd(torch, ms, args, dy, got, want, dtype: str):
+def _wrong_scan_bwd(torch, ms, args, dy, got, want, dtype: str, cut: int,
+                    where: str):
     """What a wrong gradient reads: the kernel's with the carry
-    ``a_{t+1} g_{t+1}`` into ``g_31`` dropped, i.e. dx, ddelta, dB and dC
-    of steps 0..31 replaced by the kernel's gradients of those 32 steps
-    taken alone.  The check must reject it."""
-    head = [a[:, :32].contiguous() if a.dim() == 3 else a for a in args]
+    ``a_{cut} g_{cut}`` into ``g_{cut-1}`` dropped, i.e. dx, ddelta, dB
+    and dC of steps 0..cut-1 replaced by the kernel's gradients of those
+    steps taken alone.  The check must reject it."""
+    head = [a[:, :cut].contiguous() if a.dim() == 3 else a for a in args]
     _, _, edges = ms.mamba_scan_cuda(*head, with_edges=True)
-    alone = ms.mamba_scan_bwd_cuda(*head, dy[:, :32].contiguous(), edges)
+    alone = ms.mamba_scan_bwd_cuda(*head, dy[:, :cut].contiguous(), edges)
     wrong = [g.clone() for g in got]
     for i in (0, 1, 3, 4):
-        wrong[i][:, :32] = alone[i]
-    read, passes = {}, True
+        wrong[i][:, :cut] = alone[i]
+    read, passes = {"cut": cut}, True
     for name, g, w in zip(MAMBA_GRADS, wrong, want):
         mx, rel = _grad_err(g, w)
         read[name] = dict(max_abs_err=mx, rel_norm_err=rel)
         passes = passes and _scan_grad_ok(g, w, dtype)
     check(not passes, f"mamba_scan backward: a wrong gradient (the carry "
-          f"dropped at the first chunk edge) passes the check: {read}")
+          f"dropped at {where}, step {cut}) passes the check: {read}")
     return read
 
 
+def _scan_bwd_flops(B, T, D, N) -> int:
+    """B6''s FLOPs, an FMA counted as two, as the 67 TFLOP/s peak counts
+    them.  A state and step: delta*A, exp, the state's recompute
+    (delta x B and an FMA), g (dy C and an FMA), a_t h_{t-1} and g times
+    it, the dB and dC terms and their adds over channels, and the FMAs of
+    the dx, ddelta and dA sums (10 + 5 FMAs); a channel and step: delta*x,
+    the dx sum's scaling, ddelta's FMA, D*dy and its add, dD's FMA (4 + 2
+    FMAs)."""
+    return B * T * D * (20 * N + 8)
+
+
+SCAN_BWD_LAUNCHES = {"carry": "mamba_scan_bwd_carry_kernel",
+                     "main": "mamba_scan_bwd_kernel",
+                     "reduce": "mamba_scan_bwd_reduce_kernel"}
+
+
+def _scan_bwd_launch_ms(torch, fn, iters: int):
+    """Device ms of each of B6''s launches (``SCAN_BWD_LAUNCHES``), the
+    mean over the launches a ``torch.profiler`` trace of ``iters`` calls
+    of ``fn`` holds, and how many it holds of each (a trace can miss its
+    first calls' kernels); None when the profiler fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except RuntimeError as e:
+        say(f"mamba_scan backward launches: not measured ({e})")
+        return None
+    try:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        try:
+            prof.stop()
+        except RuntimeError as e:
+            say(f"mamba_scan backward launches: not measured ({e})")
+            prof = None
+    if prof is None:
+        return None
+    total, seen = (dict.fromkeys(SCAN_BWD_LAUNCHES, 0) for _ in range(2))
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for launch, kernel in SCAN_BWD_LAUNCHES.items():
+            if kernel in ev.name:  # no one name holds another
+                total[launch] += ev.time_range.elapsed_us() / 1e3
+                seen[launch] += 1
+    return {launch: total[launch] / max(1, seen[launch])
+            for launch in SCAN_BWD_LAUNCHES}, seen
+
+
 def phase_mamba_bwd(torch):
-    """B6', the scan's backward, from the forward's train variant's chunk
-    edges, against its plain version and (fp32) the plain version against
-    autograd of the plain scan, at ``MAMBA_BWD_SHAPES``; timings beside
-    the bound and the exps' floor."""
+    """B6', the scan's backward (carry, gradient and sums, on the plan of
+    ``kernel.bwd_plan``), from the forward's train variant's edges,
+    against its plain version and (fp32) the plain version against
+    autograd of the plain scan, at ``MAMBA_BWD_SHAPES``; two wrong
+    gradients (the carry dropped at the first 32-step chunk edge and at
+    the first segment's end) rejected at each; timings of each launch
+    (a profiler trace) beside the bound, the exps' floor and the train
+    variant's and serve launch's times."""
     from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels.mamba_scan import kernel as mk
 
     results = {}
     for shape, s0 in MAMBA_BWD_SHAPES.items():
         for dname in ("float32", "bfloat16"):
             s = dict(s0, dtype=dname)
+            B, T, D, N = s["B"], s["T"], s["D"], s["N"]
+            plan = mk.bwd_plan(B, T, D, N)
             args = mamba_inputs(torch, s, seed=21)
             gen = torch.Generator(device="cuda").manual_seed(5)
             dy = torch.randn(args[0].shape, generator=gen,
@@ -2098,6 +2166,8 @@ def phase_mamba_bwd(torch):
             check(torch.equal(y0, y1) and torch.equal(h0, h1),
                   f"mamba_scan {shape} {dname}: the train variant changes "
                   "the serve outputs")
+            check(tuple(edges.shape) == mk.edges_shape(B, T, D, N),
+                  f"mamba_scan {shape}: edges {tuple(edges.shape)}")
             before = ms.BWD_DISPATCHES.kernel_launches
             got = ms.mamba_scan_bwd(*args, dy, edges)
             torch.cuda.synchronize()
@@ -2121,8 +2191,9 @@ def phase_mamba_bwd(torch):
             again = ms.mamba_scan_bwd_cuda(*args, dy, edges)
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"mamba_scan backward {shape} {dname}: two calls differ")
-            res = dict(shape=f"B={s['B']},T={s['T']},D={s['D']},N={s['N']}",
-                       dtype=dname, max_abs_err=max(errs.values()),
+            res = dict(shape=f"B={B},T={T},D={D},N={N}",
+                       dtype=dname, plan=plan._asdict(),
+                       max_abs_err=max(errs.values()),
                        max_abs_err_by_grad=errs, rel_norm_err=rels,
                        **{"over_atol_1e-5": over},
                        max_abs_ref={n: float(w.abs().max())
@@ -2140,34 +2211,48 @@ def phase_mamba_bwd(torch):
                           f"autograd: max abs err {auto[name]}")
                 res["plain_vs_fp32_autograd_max_abs_err"] = auto
                 del exact, leaves_
-            if shape == "path":
-                res["wrong_gradient_rejected"] = _wrong_scan_bwd(
-                    torch, ms, args, dy, got, want, dname)
-            B, T, D, N = s["B"], s["T"], s["D"], s["N"]
-            n_chunks = edges.shape[2]
+            # two wrong gradients, each rejected: the carry dropped at the
+            # first 32-step chunk edge, and at the first segment's end
+            check(plan.n_seg > 1, f"mamba_scan backward {shape}: one segment")
+            res["wrong_gradient_rejected"] = {
+                where: _wrong_scan_bwd(torch, ms, args, dy, got, want, dname,
+                                       cut, where)
+                for where, cut in (("chunk edge", 32),
+                                   ("segment end", plan.seg_len))}
+            n_edges = edges.shape[1]
             esize = args[0].element_size()
             # x, delta, dy read and dx, ddelta written (the inputs' type);
             # B, C read and dB, dC written; A, D and the edges read, dA, dD
             # written in fp32
             nbytes = (esize * (5 * B * T * D + 4 * B * T * N)
-                      + 4 * (2 * D * N + 2 * D + B * D * n_chunks * N))
-            # per state element and step: delta*A, exp, the state's FMA
-            # (recomputed), g's FMA and dy*C, h_t, the dB, dC, dx and
-            # ddelta terms and their sums, dA's; per channel and step
-            # delta*x, D*dy, dD's FMA
-            ops = B * T * D * (18 * N + 5)
+                      + 4 * (2 * D * N + 2 * D) + edges.numel() * 4)
+            ops = _scan_bwd_flops(B, T, D, N)
             bound_ms, bound_by = _bound(nbytes, ops, "float32")
+            blocks, threads, smem = mk.bwd_occupancy(N, args[0].dtype)
+            # by the plan's arithmetic, not measured
+            exps = plan.exps_per_state_step(T)
             res.update(bound_ms=bound_ms, bound_by=bound_by, ops=ops,
-                       bytes=nbytes,
+                       # the earlier count, an FMA as one operation
+                       ops_before=B * T * D * (18 * N + 5),
+                       bytes=nbytes, n_edges=n_edges,
                        # one exp a state element and step (a_t, needed by
                        # the forward's states and by g)
-                       sfu_ms=B * T * D * N / SFU_EX2_PER_S * 1e3)
+                       sfu_ms=B * T * D * N / SFU_EX2_PER_S * 1e3,
+                       plan_exps_per_state_step=exps,
+                       sfu_ms_at_plan_exps=exps * B * T * D * N
+                       / SFU_EX2_PER_S * 1e3,
+                       resident_blocks_per_sm=blocks, threads_per_block=threads,
+                       smem_per_block=smem,
+                       resident_warps_per_sm=blocks * threads // 32)
             big = shape in ("path", "jamba")
             iters = 5 if big else 20
             res["ms"] = time_ms(torch, lambda: ms.mamba_scan_bwd(
                 *args, dy, edges), iters, warmup=1)
             res["device_ms"] = graph_ms(torch, lambda: ms.mamba_scan_bwd_cuda(
                 *args, dy, edges), iters)
+            res["device_ms_by_launch"], res["traced_launches"] = (
+                _scan_bwd_launch_ms(torch, lambda: ms.mamba_scan_bwd_cuda(
+                    *args, dy, edges), iters) or (None, None))
             res["train_forward_device_ms"] = graph_ms(
                 torch, lambda: ms.mamba_scan_cuda(*args, with_edges=True),
                 iters)
@@ -2842,7 +2927,12 @@ def main() -> int:
         "bound_by": spath["bound_by"],
         "library_ms": None,
         "device_ms": spath["device_ms"],
+        "device_ms_by_launch": spath["device_ms_by_launch"],
         "sfu_ms": spath["sfu_ms"],
+        "resident_warps_per_sm": spath["resident_warps_per_sm"],
+        "jamba_device_ms": sbres[("jamba", "bfloat16")]["device_ms"],
+        "train_forward_device_ms": spath["train_forward_device_ms"],
+        "serve_forward_device_ms": spath["serve_forward_device_ms"],
         "shape": f"{spath['shape']},bf16",
     })
     say(json.dumps({"kernels": kernels}))

@@ -39,10 +39,13 @@
 //   channel) and writes y in rows of 64 channels one chunk later, from a
 //   second buffer of parts, so a chunk costs one barrier.
 // Train variant (mamba_scan_train_launch): the kernel instantiated with
-// kEdges also writes the state entering each chunk, edges [B, Dm,
-// ceil(T / kChunk), N] fp32 (chunk 0's is zero), from which the backward
-// (mamba_scan_bwd.cu) recomputes a chunk's states; the serve launch
-// instantiates it without, so its code is the same as before.
+// kEdges also writes the state entering each window of kAhead = 16 steps,
+// edges [B, ceil(T / 16), K, Dm, 4] fp32 (state 4k + i of channel d at
+// [.., k, d, i]; window 0's is zero, states past N too), from which the
+// backward (mamba_scan_bwd.cu) recomputes a window's states.  A thread
+// writes its 4 states as one 16-byte store, so a warp's store is 512
+// contiguous bytes.  The serve launch instantiates the kernel without, so
+// its code is the same as before.
 // Any T >= 1, any Dm and 1 <= N <= 32.  Rows whose bytes (or whose
 // tensors' starts) are not a multiple of 16 are staged by plain loads.
 //
@@ -232,6 +235,7 @@ mamba_scan_kernel(const T* __restrict__ x, const T* __restrict__ delta,
   // a thread: loaded into registers while a chunk is computed, widened
   // and stored after it (np is a multiple of kStates: zero columns >= N)
   const int n_chunks = (T_len + kChunk - 1) / kChunk;
+  const int n_edges = (T_len + kAhead - 1) / kAhead;
   T bc[2][kBcPerThread];
   auto load_bc = [&](int chunk) {
     const int t0 = chunk * kChunk;
@@ -305,16 +309,6 @@ mamba_scan_kernel(const T* __restrict__ x, const T* __restrict__ delta,
     }
     cp_async_commit();
     if (chunk > 0) write_y(chunk - 1);
-    if (kEdges && live) {
-      // the state entering this chunk
-      float* e = edges + ((static_cast<int64_t>(b) * Dm + d) * n_chunks +
-                          chunk) * N;
-#pragma unroll
-      for (int j = 0; j < kStates; ++j) {
-        const int n = k * kStates + j;
-        if (n < N) e[n] = h[j];
-      }
-    }
 
     const T* xs = xs_of(chunk);
     const T* ds = xs + kChunk * kChannels;
@@ -323,6 +317,15 @@ mamba_scan_kernel(const T* __restrict__ x, const T* __restrict__ delta,
     float* part = part_of(chunk);
 #pragma unroll
     for (int t0 = 0; t0 < kChunk; t0 += kAhead) {
+      if (kEdges && live) {
+        // the state entering this window
+        const int e = (chunk * kChunk + t0) / kAhead;
+        if (e < n_edges)
+          *reinterpret_cast<float4*>(
+              edges + (((static_cast<int64_t>(b) * n_edges + e) * K + k) *
+                           Dm + d) * kStates) =
+              make_float4(h[0], h[1], h[2], h[3]);
+      }
       // everything of kAhead steps that does not depend on h; group 0
       // starts y_t with D x_t
       float a[kAhead][kStates], bx[kAhead][kStates], p[kAhead];
@@ -463,8 +466,9 @@ extern "C" int mamba_scan_launch(const void* x, const void* delta,
               dtype, stream);
 }
 
-// mamba_scan_launch that also writes edges [B, Dm, ceil(T / 32), N] fp32,
-// the state entering each chunk of 32 steps (training's forward).
+// mamba_scan_launch that also writes edges [B, ceil(T / 16), ceil(N / 4),
+// Dm, 4] fp32, the state entering each window of 16 steps (training's
+// forward).
 extern "C" int mamba_scan_train_launch(const void* x, const void* delta,
                                        const void* A, const void* Bm,
                                        const void* Cm, const void* Dp,

@@ -13,9 +13,9 @@ fp32; ``y`` comes back in ``x``'s type and ``h_T`` in fp32.
 
 Under autograd (grad enabled and an input that requires grad) a call goes
 through :class:`MambaScanFunction`: its forward is the kernel's train
-variant, which also writes the state entering each chunk of 32 steps, and
-its backward :func:`mamba_scan_bwd` — the CUDA backward kernel on the
-card, the plain :func:`.ref.mamba_scan_bwd_ref` on the CPU.  ``h_T`` takes
+variant, which also writes the state entering each window of 16 steps,
+and its backward :func:`mamba_scan_bwd` — the CUDA backward kernels on
+the card, the plain :func:`.ref.mamba_scan_bwd_ref` on the CPU.  ``h_T`` takes
 no gradient there (training uses only ``y``, as the JAX package's scan
 returns only ``y``): it comes back detached.
 
@@ -23,9 +23,10 @@ Every forward call is tallied in :data:`DISPATCHES` (rows = channels,
 ``B * D``); ``kernel_launches`` counts the calls that launched the CUDA
 kernel, and :data:`DTYPE_LAUNCHES` those launches by the inputs' type.
 :data:`BWD_DISPATCHES` tallies the backward calls likewise; one call is
-two kernel launches (the gradient and the sums of its partials) and
-counts once.  ``mamba_step`` (one decode token) has no kernel in either
-package: it is plain PyTorch on every device.
+up to three kernel launches (the carry across segments, the gradient and
+the sums of its partials) and counts once.  ``mamba_step`` (one decode
+token) has no kernel in either package: it is plain PyTorch on every
+device.
 """
 from __future__ import annotations
 
@@ -34,8 +35,8 @@ from typing import Optional, Tuple
 import torch
 
 from ..ledger import DispatchStats
-from .kernel import (MAX_BATCH, MAX_STATE, mamba_scan_bwd_cuda,
-                     mamba_scan_cuda, n_chunks)
+from .kernel import (MAX_BATCH, MAX_STATE, edges_shape, mamba_scan_bwd_cuda,
+                     mamba_scan_cuda)
 from .ref import mamba_scan_bwd_ref, mamba_scan_ref, mamba_step_ref
 
 DISPATCHES = DispatchStats()
@@ -127,8 +128,9 @@ def mamba_scan_bwd(
     """``(dx, ddelta, dA, dBm, dCm, dD)`` of ``y`` of :func:`mamba_scan`
     against its gradient ``dy`` (``[B, T, D]`` in ``x``'s type), each in
     its input's type.  On the card ``edges`` is the train variant's
-    ``[B, D, ceil(T / 32), N]`` fp32 states entering each chunk; the
-    CPU's plain version recomputes the states and takes none."""
+    ``[B, ceil(T / 16), ceil(N / 4), D, 4]`` fp32 states entering each
+    window (``kernel.edges_shape``); the CPU's plain version recomputes
+    the states and takes none."""
     check_scan_inputs("mamba_scan_bwd", x, delta, A, Bm, Cm, D)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
             or not dy.is_contiguous():
@@ -140,7 +142,7 @@ def mamba_scan_bwd(
     BWD_DISPATCHES.rows += Bsz * Dm
     if x.device.type == "cpu":
         return mamba_scan_bwd_ref(x, delta, A, Bm, Cm, D, dy)
-    want = (Bsz, Dm, n_chunks(T), A.shape[1])
+    want = edges_shape(Bsz, T, Dm, A.shape[1])
     if edges is None or tuple(edges.shape) != want \
             or edges.dtype != torch.float32 or edges.device != x.device \
             or not edges.is_contiguous():

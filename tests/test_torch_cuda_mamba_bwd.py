@@ -8,11 +8,14 @@ imports neither ``jax`` nor the JAX package:
 
 The shapes are those of ``chip_smoke.py``'s backward phase (the
 ``falcon-mamba-7b`` training shape, ``jamba-1.5-large-398b``'s width, a
-ragged T, N = 8 at B = 2) and narrow ones (N of 3 and 32, widths that are
-not a multiple of a block's 64 channels), in fp32 and bf16, held with the
-tolerances of ``chip_smoke.py``'s ``MAMBA_BWD_TOL`` (see :func:`grad_ok`).
-The train variant must leave the serve outputs bit for bit and write the
-states entering each chunk; two launches of the backward, and two
+ragged T, N = 8 at B = 2), narrow ones (N of 1, 3 and 32, widths that are
+not a multiple of a block's 64 channels) and T around a segment's end
+(``kernel.bwd_plan``: 15, 16 and 17 steps, where the first segment is one
+16-step window; 255, 256 and 257 at falcon's width; B = 3 with eleven
+segments), in fp32 and bf16, held with the tolerances of
+``chip_smoke.py``'s ``MAMBA_BWD_TOL`` (see :func:`grad_ok`).  The train
+variant must leave the serve outputs bit for bit and write the states
+entering each 16-step window; two launches of the backward, and two
 deterministic ``grad_step``s of the smoke ``falcon-mamba-7b`` and
 ``jamba-1.5-large-398b``, must agree bit for bit.
 """
@@ -22,7 +25,9 @@ import torch
 
 from repro_torch.configs import smoke_config
 from repro_torch.kernels import mamba_scan as ms
-from repro_torch.kernels.mamba_scan.kernel import (CHUNK, mamba_scan_bwd_cuda,
+from repro_torch.kernels.mamba_scan.kernel import (CHUNK, EDGE, bwd_plan,
+                                                   edge_states, edges_shape,
+                                                   mamba_scan_bwd_cuda,
                                                    mamba_scan_cuda)
 from repro_torch.models import build_model
 from repro_torch.runtime.ft import deterministic
@@ -30,7 +35,13 @@ from repro_torch.tree import leaves, map_tree
 
 NAMES = ("dx", "ddelta", "dA", "dBm", "dCm", "dD")
 SHAPES = [(1, 4096, 8192, 16), (1, 4096, 16384, 16), (1, 63, 1024, 16),
-          (2, 777, 512, 8), (3, 100, 100, 3), (2, 70, 200, 32)]
+          (2, 777, 512, 8), (3, 100, 100, 3), (2, 70, 200, 32),
+          (2, 100, 256, 1),
+          # T around a segment's end: one 16-step window less, equal, more
+          (1, 15, 512, 16), (1, 16, 512, 16), (1, 17, 512, 16),
+          (1, 255, 8192, 16), (1, 256, 8192, 16), (1, 257, 8192, 16),
+          # several segments at B = 3
+          (3, 1000, 512, 16)]
 # fp32: rtol 1e-4 above an atol of 1e-5 of the gradient's largest entry
 # (at T = 4,096 the plain fp32 version itself misses an absolute 1e-5
 # against fp64 where sums reach ~270), and 1e-5 in norm; bf16: rtol
@@ -79,6 +90,8 @@ def grad_ok(g, want, dtype) -> bool:
 @pytest.mark.parametrize("B,T,D,N", SHAPES)
 def test_scan_bwd_kernel_matches_plain_on_the_card(cuda, B, T, D, N, dtype):
     args, dy = scan_inputs(B, T, D, N, dtype, seed=T + N)
+    # T is cut into segments wherever it is longer than one window
+    assert (bwd_plan(B, T, D, N).n_seg > 1) == (T > EDGE)
     y, hT, edges = mamba_scan_cuda(*args, with_edges=True)
     launched = ms.BWD_DISPATCHES.kernel_launches
     got = ms.mamba_scan_bwd(*args, dy, edges)
@@ -101,13 +114,16 @@ def test_train_variant_keeps_the_serve_outputs_and_writes_the_edges(
     y0, h0 = mamba_scan_cuda(*args)
     y1, h1, edges = mamba_scan_cuda(*args, with_edges=True)
     assert torch.equal(y0, y1) and torch.equal(h0, h1)
-    n_chunks = -(-T // CHUNK)
-    assert edges.shape == (2, 200, n_chunks, 16)
-    assert bool((edges[:, :, 0] == 0).all())
-    for c in range(1, n_chunks):
-        _, h = ms.mamba_scan_ref(*(a[:, :c * CHUNK].contiguous()
+    # the state entering each window of EDGE steps, [B, ceil(T / 16),
+    # ceil(N / 4), D, 4]
+    assert edges.shape == edges_shape(2, T, 200, 16) \
+        == (2, -(-T // EDGE), 4, 200, 4)
+    states = edge_states(edges, 16)
+    assert bool((states[:, 0] == 0).all())
+    for e in range(1, states.shape[1]):
+        _, h = ms.mamba_scan_ref(*(a[:, :e * EDGE].contiguous()
                                    if a.dim() == 3 else a for a in args))
-        torch.testing.assert_close(edges[:, :, c], h, atol=2e-4, rtol=2e-4)
+        torch.testing.assert_close(states[:, e], h, atol=2e-4, rtol=2e-4)
 
 
 @pytest.mark.gpu

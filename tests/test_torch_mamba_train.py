@@ -159,8 +159,10 @@ def test_bwd_wrapper_on_cuda_launches_the_kernel_or_raises():
             mamba_scan_bwd(x, x.clone(), A, Bm, Bm.clone(), Dp, x.clone())
         with pytest.raises(ValueError, match="edges"):
             mamba_scan_bwd(x, x.clone(), A, Bm, Bm.clone(), Dp, x.clone(),
-                           torch.zeros((1, 8, 1, 4), device="cuda"))
-        edges = torch.zeros((1, 8, 2, 4), device="cuda")
+                           torch.zeros((1, 8, 2, 4), device="cuda"))
+        # [B, ceil(T / 16), ceil(N / 4), D, 4]: the state entering each
+        # window of 16 steps
+        edges = torch.zeros((1, 3, 1, 8, 4), device="cuda")
         with pytest.raises((RuntimeError, AssertionError)):
             mamba_scan_bwd(x, x.clone(), A, Bm, Bm.clone(), Dp, x.clone(),
                            edges)
@@ -171,7 +173,7 @@ def test_backward_module_builds_nothing_on_import():
     from repro_torch.kernels.mamba_scan import kernel as mk
     assert mk.bwd_library.cache_info().currsize == 0
     assert mk.BWD_SOURCE.is_file() and mk.BWD_SOURCE.suffix == ".cu"
-    assert [mk.n_chunks(t) for t in (1, 32, 33, 4096)] == [1, 1, 2, 128]
+    assert [mk.n_edges(t) for t in (1, 32, 33, 4096)] == [1, 2, 3, 256]
 
 
 # --------------------------------------------------------- the Mamba block
