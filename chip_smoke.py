@@ -59,7 +59,24 @@ Phases, each printed as it runs; any failure exits non-zero:
    just before and read just after;
 6. parity — the same flow at 20,000 elements and 400 removes on ``cpu``
    (the plain versions) and on ``cuda`` must give identical pages;
-7. model — the model serve path: the full 62-layer ``gemma3-27b`` in
+7. cluster — the main path through a partitioned, durable, lossy
+   cluster on ``cuda``: 8 vnodes on a ring of 64 partitions, factor 3, a
+   network that drops, duplicates and reorders, WAL group commit of 8;
+   100,000 eight-byte elements with 16-byte values written over the wire
+   from rotating coordinators, 1,000 context-less removes, a seeded kill
+   point tearing ``v0``'s WAL mid-batch, its crash and replay (every
+   write durable at the barrier before must survive), anti-entropy in
+   whole sweeps until quiet, a ninth vnode joining with handoff until it
+   drains, anti-entropy again, 1,000 more removes and anti-entropy, then
+   a full Scan at page size 1,000 and r=2, a Count and a membership
+   context round trip through the service, every answer held against a
+   Python model; the
+   ``dot_seen`` counts are zeroed just before and read just after, and
+   the clock lattice runs on every partition's healed clocks;
+8. cluster parity — the same flow at 20,000 elements and 400 removes on
+   ``cpu`` and on ``cuda``: identical pages, network traffic,
+   anti-entropy ledger, ring state, recovery and handoff;
+9. model — the model serve path: the full 62-layer ``gemma3-27b`` in
    bf16 with random weights (seed 0) on ``cuda`` through ``ServeEngine``
    (``max_batch=4, max_len=2048``), 6 seeded requests (four prompts of
    4–16 tokens, one of 1,280 and one of 1,536), 16 new tokens each; the
@@ -67,33 +84,33 @@ Phases, each printed as it runs; any failure exits non-zero:
    dispatch must have launched the CUDA kernels: every prefill on the
    flash kernel's tensor-core route, every decode step on the split-KV
    kernels;
-8. model parity — the smoke ``gemma3-27b`` (fp32) served on ``cpu`` (the
+10. model parity — the smoke ``gemma3-27b`` (fp32) served on ``cpu`` (the
    plain versions) and on ``cuda`` (the kernels) gives identical greedy
    token streams and logits within 1e-4; the smoke ``pixtral-12b`` (fp32)
    with seeded ``patch_embeds`` gives identical greedy streams and logits
    within 1e-4 on both, and other logits without the patches;
-9. SSM model — the SSM serve path, after the ``gemma3-27b`` model is
+11. SSM model — the SSM serve path, after the ``gemma3-27b`` model is
    freed: the full 64-layer ``falcon-mamba-7b`` in bf16 with random
    weights (seed 0) through the same engine and the same six prompts; the
    ``mamba_scan`` counts are zeroed just before and read just after, and
    every one of the 64 x 6 prefill scans must have launched the kernel on
    the model's bf16 activations;
-10. SSM parity — the smoke ``falcon-mamba-7b`` (fp32) on ``cpu`` and on
+12. SSM parity — the smoke ``falcon-mamba-7b`` (fp32) on ``cpu`` and on
     ``cuda``: identical greedy token streams and logits within 1e-4; in
     bf16 (its scans read bf16), logits within 2e-2;
-11. MoE model — the MoE serve path: the full 24-layer
+13. MoE model — the MoE serve path: the full 24-layer
     ``granite-moe-1b-a400m`` (32 experts, top 8) in bf16 with random
     weights (seed 0) through the same engine and six prompts, with the
     same launch checks as the model phase, the share of token-slots that
     capacity dropped in each prefill (decode must drop none) and peak
     memory;
-12. grok model — ``grok-1-314b`` at full width (d_model 6,144, 48 over 8
+14. grok model — ``grok-1-314b`` at full width (d_model 6,144, 48 over 8
     heads of 128, 8 experts top 2 of d_ff 32,768, its int8 KV cache) with
     its depth cut from 64 to 6 layers (60.7 GB of bf16 weights), after
     every earlier model is freed, through the same engine and prompts;
     every decode step reads the dequantised int8 cache through the decode
     kernel;
-13. hybrid model — ``jamba-1.5-large-398b`` at full width (d_model
+15. hybrid model — ``jamba-1.5-large-398b`` at full width (d_model
     8,192, 64 over 8 heads of 128, d_inner 16,384, 16 experts top 2 of
     d_ff 24,576, its int8 KV cache) with its depth cut from 72 to 5 layers
     (4 Mamba and 1 attention mixer; 48.1 GB of bf16 weights), after every
@@ -101,10 +118,10 @@ Phases, each printed as it runs; any failure exits non-zero:
     launch checks count mixers: a flash launch an attention layer and
     prompt, a decode launch an attention layer and step, a scan launch (in
     bf16) a Mamba layer and prompt;
-14. MoE parity — the smoke ``granite-moe-1b-a400m`` and the smoke
+16. MoE parity — the smoke ``granite-moe-1b-a400m`` and the smoke
     ``grok-1-314b`` (fp32; grok's int8 cache kept) on ``cpu`` and on
     ``cuda``: identical greedy streams and logits within 1e-4;
-15. attention backward — the backward kernel (``flash_attention_bwd.cu``)
+17. attention backward — the backward kernel (``flash_attention_bwd.cu``)
     against its plain version from the same forward output and
     log-sum-exps, and against autograd of the plain attention in fp32, at
     the training path's shape (24 over 8 heads, T = S = 4,096, D = 128,
@@ -120,7 +137,7 @@ Phases, each printed as it runs; any failure exits non-zero:
     high) must fail both checks; device, wrapper, plain
     and SDPA backward ms beside the bound; then the forward at the serve
     shape of the attention phase with and without the log-sum-exp output;
-16. mamba backward — the scan's backward (``mamba_scan_bwd.cu``: a
+18. mamba backward — the scan's backward (``mamba_scan_bwd.cu``: a
     carry launch across T's segments, the gradient, the fixed-order sums)
     from the forward's train variant's edges (a state every 16 steps),
     against its plain version at the SSM training path's shape
@@ -136,7 +153,7 @@ Phases, each printed as it runs; any failure exits non-zero:
     as two), the floor of the exps, the plan's exps a state and step (its
     arithmetic, not a measurement), the resident warps an SM and the
     train variant's and serve launch's device ms;
-17. train — the training path: ``FTTrainer`` on the full 32-layer
+19. train — the training path: ``FTTrainer`` on the full 32-layer
     ``minitron-4b`` (bf16, fp32 AdamW moments, remat) with random weights
     (seed 0), two simulated hosts of one 4,096-token sequence each, 4
     steps (the global batch cut from ``train_4k``'s 256 to 2); the flash
@@ -146,31 +163,31 @@ Phases, each printed as it runs; any failure exits non-zero:
     ms, tokens/s and ``mfu`` over the two warm unprofiled steps (2 and 3)
     with their spread, peak memory, the last step's device busy share
     from ``torch.profiler``;
-18. MoE train — the same on the full ``granite-moe-1b-a400m`` (bf16, fp32
+20. MoE train — the same on the full ``granite-moe-1b-a400m`` (bf16, fp32
     AdamW moments, remat): ``mfu`` counts the parameters a token reaches
     (``ModelConfig.n_active_params``), checked against a count of the
     held leaves; the profiled step's device time by class (attention
     kernels, matmuls, the MoE dispatch: top-k, sort, searchsorted,
     scatters and gathers);
-19. SSM train — the same on ``falcon-mamba-7b`` at full width (d_model
+21. SSM train — the same on ``falcon-mamba-7b`` at full width (d_model
     4,096, d_inner 8,192, vocab 65,024, bf16, fp32 moments, remat) with its
     depth cut from 64 to ``SSM_TRAIN_LAYERS``: every scan forward (twice
     a layer under remat) and backward on the kernels, in bf16; the
     profiled step's device time by class (matmuls, scan forward, scan
     backward); then two deterministic ``grad_step``s of the model at full
     width and 2 layers, bit-equal;
-20. fault tolerance — at full width and 2 layers, ``test_ft.py``'s
+22. fault tolerance — at full width and 2 layers, ``test_ft.py``'s
     crash-restore flow at 4,096 tokens: train, checkpoint, a checkpoint
     host crashes, a restarted fleet restores from the surviving replicas
     and continues, with losses equal to an uninterrupted run's within
     rtol 1e-5; save and restore seconds, the store's bytes, peak RSS;
-21. train parity — one ``train_step`` of the smoke ``minitron-4b`` (fp32)
+23. train parity — one ``train_step`` of the smoke ``minitron-4b`` (fp32)
     from one state on ``cpu`` and on ``cuda``: loss within 1e-4,
     parameters within rtol 1e-4 / atol 1e-5;
-22. MoE train parity — the same for the smoke ``granite-moe-1b-a400m``,
+24. MoE train parity — the same for the smoke ``granite-moe-1b-a400m``,
     then two of its ``grad_step``s on ``cuda`` under the trainer's
     enforced deterministic algorithms, whose gradients must be bit-equal;
-23. hybrid parity — the smoke ``jamba-1.5-large-398b`` (fp32, int8 cache,
+25. hybrid parity — the smoke ``jamba-1.5-large-398b`` (fp32, int8 cache,
     one mixed group of 8 layers and one in the tail) served on ``cpu`` and
     on ``cuda``: identical greedy streams and logits within 1e-4; then
     ``train parity`` and two deterministic ``grad_step``s bit-equal, which
@@ -943,29 +960,36 @@ def _events_by_actor(clock, actors):
     return [n[a] for a in actors]
 
 
-def phase_clock_entry(torch, cluster):
-    """The clock lattice's entry point on the clocks the main path left:
-    each replica's set clock and tombstone, dense on the card, merged with
-    every replica's and counted; the ``clock_ops`` counts are zeroed just
-    before and read just after.  Every answer is held against the sparse
-    ``Clock``'s own join, subtract_clock, intersect and events."""
+def phase_clock_entry(torch, cluster, groups=None):
+    """The clock lattice's entry point on the clocks a bigset path left.
+
+    ``groups`` lists replica groups, each a list of ``(vnode, storage
+    set)``; by default one group, every replica's ``SET``.  Within a group
+    each replica's set clock and tombstone, dense on the card, is merged
+    with every replica's and counted; the ``clock_ops`` counts are zeroed
+    just before and read just after.  Every answer is held against the
+    sparse ``Clock``'s own join, subtract_clock, intersect and events."""
     from repro_torch.core.vclock import from_clock, to_clock
     from repro_torch.kernels import clock_ops as co
 
     actors = list(cluster.actors)
     index = {a: i for i, a in enumerate(actors)}
-    sparse = {}
-    for r, actor in enumerate(actors):
-        vnode = cluster.vnodes[actor]
-        sparse[f"set{r}"] = vnode.read_clock(SET)
-        sparse[f"tomb{r}"] = vnode.read_tombstone(SET)
+    if groups is None:
+        groups = [[(cluster.vnodes[a], SET) for a in actors]]
+    sparse, pairs = {}, []
+    for g, members in enumerate(groups):
+        for r, (vnode, set_name) in enumerate(members):
+            sparse[f"set{g}.{r}"] = vnode.read_clock(set_name)
+            sparse[f"tomb{g}.{r}"] = vnode.read_tombstone(set_name)
+        # every replica's set clock with every replica's tombstone and set
+        # clock, and every tombstone with every tombstone
+        n = len(members)
+        pairs += [(f"{x}{g}.{i}", f"{y}{g}.{j}")
+                  for i in range(n) for j in range(n)
+                  for x, y in (("set", "tomb"), ("set", "set"),
+                               ("tomb", "tomb"))]
     dense = {name: from_clock(c, index, len(actors), device="cuda")
              for name, c in sparse.items()}
-    n = len(actors)
-    # every replica's set clock with every replica's tombstone and set
-    # clock, and every tombstone with every tombstone
-    pairs = [(f"{x}{i}", f"{y}{j}") for i in range(n) for j in range(n)
-             for x, y in (("set", "tomb"), ("set", "set"), ("tomb", "tomb"))]
     sparse_ops = {"join": "join", "subtract": "subtract_clock",
                   "intersect": "intersect"}
 
@@ -994,12 +1018,14 @@ def phase_clock_entry(torch, cluster):
               f"clock_ops popcount of {name} differs from the sparse Clock")
     check(all(c.kernel_launches == c.launches > 0 for c in launched.values()),
           "a clock_ops dispatch on the path's clocks missed the CUDA kernel")
-    widths = {name: c.n_runs for name, c in dense.items()}
-    say(f"[clock_ops] entry point on the main path's clocks ({n} replicas; "
-        f"runs per row {json.dumps(widths)}; events set "
-        f"{sparse['set0'].n_events()}, tombstone {sparse['tomb0'].n_events()}): "
-        f"{len(merged)} merges and {len(counts)} popcounts in {wall:.3f}s, "
-        f"all equal to the sparse Clock; dispatches "
+    widest = max(c.n_runs for c in dense.values())
+    say(f"[clock_ops] entry point on the path's clocks ({len(groups)} "
+        f"group(s) of {len(groups[0])} replicas, {len(actors)} actors; "
+        f"widest row {widest} runs; events of the first set clock "
+        f"{sparse['set0.0'].n_events()}, tombstone "
+        f"{sparse['tomb0.0'].n_events()}): {len(merged)} merges and "
+        f"{len(counts)} popcounts in {wall:.3f}s, all equal to the sparse "
+        f"Clock; dispatches "
         f"{json.dumps({k: vars(v) for k, v in launched.items()})}")
     return launched
 
@@ -1122,6 +1148,326 @@ def phase_parity(torch):
     for i, (a, b) in enumerate(zip(cpu, cuda)):
         check(a == b, f"page {i} differs between cpu and cuda")
     say(f"[parity] cpu and cuda agree on {len(cpu)} pages at 20000 elements")
+
+
+# ------------------------------------------------------------ cluster path
+# The main path through a partitioned ring on a lossy network, durable with
+# group commit, through a crash and a restart, a ring change and
+# anti-entropy: the layout of benchmarks/bench_placement.py (8 vnodes,
+# factor 3, 64 partitions) and benchmarks/bench_recovery.py (a seeded kill
+# point tearing a vnode's WAL mid-batch).
+CLUSTER_VNODES, CLUSTER_FACTOR, CLUSTER_GROUP_DEPTH = 8, 3, 8
+CLUSTER_NET = dict(seed=1, drop_prob=0.1, dup_prob=0.05, reorder=True)
+CLUSTER_VALUE_BYTES = 16
+# anti-entropy is quiet after this many whole sweeps in a row ship no key
+# and sync no pull
+CLUSTER_QUIET_SWEEPS = 2
+CLUSTER_SWEEP_CAP = 40
+CLUSTER_HANDOFF_CAP = 200
+
+
+def until_quiet(cluster, tag: str) -> dict:
+    """Anti-entropy in whole sweeps (one tick of every (partition, owner
+    pair) round, its traffic then delivered) until ``CLUSTER_QUIET_SWEEPS``
+    sweeps in a row ship no key and sync no pull; fails at the cap."""
+    ring = cluster.ring
+    sweep = ring.n_partitions * ring.factor * (ring.factor - 1) // 2
+    ae = cluster.ae_stats()
+    shipped0, digest0 = ae.keys_shipped, ae.digest_bytes
+    sweeps, quiet = 0, 0
+    t0 = time.perf_counter()
+    while quiet < CLUSTER_QUIET_SWEEPS:
+        check(sweeps < CLUSTER_SWEEP_CAP,
+              f"{tag} anti-entropy not quiet after {sweeps} sweeps")
+        before = (ae.keys_shipped, ae.rounds_synced)
+        cluster.tick(budget=sweep)
+        cluster.settle()
+        sweeps += 1
+        quiet = quiet + 1 if (ae.keys_shipped, ae.rounds_synced) == before \
+            else 0
+    cluster.settle()
+    return {"sweeps": sweeps, "rounds_per_sweep": sweep,
+            "keys_shipped": ae.keys_shipped - shipped0,
+            "digest_bytes": ae.digest_bytes - digest0,
+            "seconds": time.perf_counter() - t0}
+
+
+def drive_cluster(torch, device: str, n_elements: int, n_removes: int,
+                  page_size: int = 1000, timed: bool = False):
+    """The bigset path on ``device`` through a partitioned, durable, lossy
+    cluster; returns what the run shows (pages, ledgers, ring, recovery)
+    as plain data, and the cluster.
+
+    Writes go over the service's wire protocol (the ``batch`` and
+    ``insert`` ops, each with its ``coordinator``), in batches of 1,000
+    from rotating coordinators, each batch's replication then delivered by
+    the lossy network.  Every answer is held against a Python model of the
+    writes the client made: a context-less remove goes through a replica
+    sure to hold every dot of its element (the dot's coordinator, or any
+    owner once anti-entropy is quiet), and a write whose durability the
+    crash left unconfirmed is retried by the client through a live
+    owner."""
+    import msgpack
+    from repro_torch.cluster.clusters import BigsetCluster, Ring
+    from repro_torch.cluster.sim import Network
+    from repro_torch.query.plan import Count, Scan
+    from repro_torch.serve.bigset_service import (STATUS_OK, WIRE_VERSION,
+                                                  BigsetClient, BigsetService)
+    from repro_torch.storage import CrashError, CrashPoint
+
+    actors = [f"v{i}" for i in range(CLUSTER_VNODES)]
+    cluster = BigsetCluster(
+        ring=Ring.build(actors, factor=CLUSTER_FACTOR),
+        net=Network(**CLUSTER_NET), sync=False, durable=True,
+        group_depth=CLUSTER_GROUP_DEPTH, device=device)
+    service = BigsetService(cluster)
+    client = BigsetClient(service)
+    tag = f"[cluster {device} {n_elements}]"
+    out = {}
+
+    def wire(op, body):
+        body = dict(body, set=SET, session=client.session)
+        raw = service.handle(msgpack.packb([WIRE_VERSION, op, body]))
+        _version, status, reply = msgpack.unpackb(raw)
+        check(status == STATUS_OK, f"{tag} {op} refused: {reply}")
+        return reply
+
+    def value(el):
+        return b"val:" + el.rjust(CLUSTER_VALUE_BYTES - 4, b"0")
+
+    def entry(el):
+        """A live owner of the element's partition, as a coordinator."""
+        owners = cluster.ring.preference_list(SET, el).owners
+        live = [a for a in owners if a not in cluster.crashed]
+        return cluster.actors.index(live[0])
+
+    # ---- writes: rotating coordinators, replication over the lossy net
+    elements = [b"%08d" % i for i in range(n_elements)]
+    model = set(elements)
+    coord_of = {}
+    t0 = time.perf_counter()
+    for b, base in enumerate(range(0, n_elements, 1000)):
+        chunk = elements[base:base + 1000]
+        coordinator = b % CLUSTER_VNODES
+        res = wire("batch", {"coordinator": coordinator,
+                             "ops": [["add", e, value(e)] for e in chunk]})
+        check(all("dot" in r for r in res["results"]),
+              f"{tag} an insert returned no dot")
+        coord_of.update(dict.fromkeys(chunk, coordinator))
+        cluster.settle()
+    t_insert = time.perf_counter() - t0
+
+    # ---- context-less removes, in two halves: one now, each through the
+    # coordinator that minted its element's dot (the one replica sure to
+    # hold it), and one after the ring change (see below)
+    step = max(1, n_elements // n_removes)
+    doomed = elements[::step][:n_removes]
+    early, late = doomed[:len(doomed) // 2], doomed[len(doomed) // 2:]
+
+    def remove(group, coordinator):
+        for base in range(0, len(group), 1000):
+            res = wire("batch", {"coordinator": coordinator, "ops": [
+                ["remove", e] for e in group[base:base + 1000]]})
+            check(all(r.get("removed") for r in res["results"]),
+                  f"{tag} a context-less remove missed")
+            cluster.settle()
+
+    by_coord = {}
+    for e in early:
+        by_coord.setdefault(coord_of[e], []).append(e)
+    t0 = time.perf_counter()
+    for coordinator, group in sorted(by_coord.items()):
+        remove(group, coordinator)
+    t_remove = time.perf_counter() - t0
+    model.difference_update(early)
+
+    # ---- a seeded kill point tears v0's WAL mid-batch
+    cluster.settle()
+    cluster.sync_all()  # the acknowledgement barrier
+    v0 = cluster.vnodes["v0"]
+    v0_psets = [cluster.ring.storage_set(SET, pid)
+                for pid in cluster.ring.partitions()
+                if "v0" in cluster.ring.owners(pid)]
+    durable = {ps: v0.value(ps) for ps in v0_psets}
+    media = cluster.media["v0"]
+    media.schedule_crash(
+        CrashPoint(wal_bytes=len(media.wal) + media.wal_pending() + 40))
+    window, crashed_at = [], None
+    j = 0
+    while crashed_at is None and j < 100_000:
+        el = b"w%07d" % j
+        j += 1
+        if "v0" not in cluster.ring.preference_list(SET, el).owners:
+            continue
+        window.append(el)
+        try:
+            wire("insert", {"element": el, "value": value(el),
+                            "coordinator": 0})
+        except CrashError:
+            crashed_at = el
+    check(crashed_at is not None, f"{tag} the kill point never fired")
+    acked_seq = v0.store.commit_seq
+    cluster.crash("v0")
+    # the client cannot tell which window writes reached a disk: it
+    # retries each through a live owner of its partition
+    for el in window:
+        wire("insert", {"element": el, "value": value(el),
+                        "coordinator": entry(el)})
+    cluster.settle()
+    model.update(window)
+    t0 = time.perf_counter()
+    rec = cluster.restart("v0")
+    t_replay = time.perf_counter() - t0
+    check(rec.batches_replayed > 0, f"{tag} recovery replayed nothing")
+    check(rec.torn_bytes > 0, f"{tag} the torn record went unnoticed")
+    check(rec.last_seq >= acked_seq,
+          f"{tag} replay stopped at batch {rec.last_seq}, before the "
+          f"acknowledged {acked_seq}")
+    lost = sum(len(els - cluster.vnodes["v0"].value(ps))
+               for ps, els in durable.items())
+    check(lost == 0, f"{tag} {lost} elements durable before the crash "
+                     f"were lost in replay")
+    out["recovery"] = vars(rec)
+
+    # ---- anti-entropy heals the restarted vnode's lost tail (and what
+    # the network dropped) before the ring changes: handoff pulls from a
+    # surviving owner, and a leaver's copy is retired only once the joiner
+    # holds all of it (ROADMAP C11)
+    out["heal"] = until_quiet(cluster, tag)
+
+    # ---- a ring change: v8 joins, handoff until it drains
+    net = cluster.net
+    bytes0, shipped0 = net.bytes_sent, cluster.ae_stats().keys_shipped
+    t0 = time.perf_counter()
+    delta = cluster.add_vnode(f"v{CLUSTER_VNODES}")
+    handoff_ticks = 0
+    while (cluster.ring_state()["handoffs_pending"]
+           or cluster.ring_state()["retires_pending"]):
+        check(handoff_ticks < CLUSTER_HANDOFF_CAP,
+              f"{tag} handoff did not drain in {CLUSTER_HANDOFF_CAP} ticks")
+        cluster.tick(budget=0)
+        cluster.settle()
+        handoff_ticks += 1
+    t_handoff = time.perf_counter() - t0
+    out["handoff"] = {"moves": len(delta.moves), "ticks": handoff_ticks,
+                      "bytes": net.bytes_sent - bytes0,
+                      "keys": cluster.ae_stats().keys_shipped - shipped0}
+
+    # ---- anti-entropy over the new ring until quiet
+    out["antientropy"] = until_quiet(cluster, tag)
+
+    # ---- the later removes.  A retire compacts the leaver, and compaction
+    # shrinks its tombstones by the dots it discarded (paper section 4.3.3),
+    # so the earlier removes leave little for a read to filter: these keep
+    # the tombstones the read's dot_seen filter works on.  The owners
+    # agree now, so any coordinator holds every dot of what it removes.
+    t0 = time.perf_counter()
+    for b, base in enumerate(range(0, len(late), 1000)):
+        remove(late[base:base + 1000], b % len(cluster.actors))
+    t_remove += time.perf_counter() - t0
+    model.difference_update(late)
+    out["removes"] = until_quiet(cluster, tag)
+
+    # ---- the read: a full Scan, a Count, a membership ctx round trip
+    t0 = time.perf_counter()
+    pages, members = [], []
+    for page in client.pages(Scan(SET, page_size=page_size), r=2):
+        members.extend(page.members)
+        pages.append(([(e, tuple(tuple(d) for d in ds))
+                       for e, ds in page.entries], dict(page.stats)))
+    t_scan = time.perf_counter() - t0
+    check(members == sorted(model),
+          f"{tag} scan returned {len(members)} elements, the model holds "
+          f"{len(model)}")
+    count = client.query(Count(SET), r=2).count
+    check(count == len(model), f"{tag} count {count} != model {len(model)}")
+    victim = min(model)
+    present, ctx = client.membership(SET, victim, r=2)
+    check(present and bool(ctx), f"{tag} membership missed a live element")
+    check(client.remove(SET, victim, ctx=ctx), f"{tag} ctx remove missed")
+    cluster.settle()
+    model.discard(victim)
+    # on a sync=False cluster the remove is acknowledged by its coordinator
+    # alone (the network may drop its replicas): ask every owner
+    gone, _ = client.membership(SET, victim, r=CLUSTER_FACTOR)
+    check(not gone, f"{tag} element visible after its ctx remove")
+    after = client.query(Count(SET), r=CLUSTER_FACTOR).count
+    check(after == len(model), f"{tag} count {after} != model {len(model)}")
+    client.close()
+
+    launches = sum(p[1]["kernel_launches"] for p in pages)
+    out.update(pages=pages, count=count, ring=cluster.ring_state(),
+               ae=vars(cluster.ae_stats()),
+               net=[net.bytes_sent, net.msgs_sent, net.msgs_dropped])
+    if timed:
+        n_win = len(window)
+        say(f"{tag} write: {n_elements} inserts in {t_insert:.3f}s "
+            f"({n_elements / t_insert:.0f} el/s), {len(doomed)} "
+            f"context-less removes in {t_remove:.3f}s "
+            f"({len(doomed) / t_remove:.0f} el/s)")
+        say(f"{tag} crash: v0's WAL torn at {crashed_at.decode()} "
+            f"({n_win} window writes retried); replay {t_replay:.4f}s, "
+            f"{json.dumps(out['recovery'])}")
+        say(f"{tag} ring change: {out['handoff']['moves']} of "
+            f"{cluster.ring.n_partitions} partitions moved; handoff "
+            f"{handoff_ticks} ticks in {t_handoff:.3f}s, "
+            f"{out['handoff']['keys']} keys, {out['handoff']['bytes']} bytes")
+        for name, when in (("heal", "before the ring change"),
+                           ("antientropy", "after the ring change"),
+                           ("removes", "after the later removes")):
+            a = out[name]
+            say(f"{tag} anti-entropy ({when}): quiet after "
+                f"{a['sweeps']} sweeps of {a['rounds_per_sweep']} rounds in "
+                f"{a['seconds']:.3f}s; {a['keys_shipped']} keys shipped, "
+                f"{a['digest_bytes']} digest bytes")
+        say(f"{tag} scan: {len(members)} elements in {len(pages)} pages, "
+            f"{t_scan:.3f}s ({len(members) / t_scan:.0f} el/s); count "
+            f"{count}; membership ctx round trip ok")
+        say(f"{tag} dot_seen launches per page: "
+            f"{launches / len(pages):.2f} ({launches} over {len(pages)} "
+            f"pages)")
+    return out, cluster
+
+
+def phase_cluster(torch):
+    from repro_torch.kernels.dot_seen import DISPATCHES
+
+    DISPATCHES.reset()
+    t0 = time.perf_counter()
+    _, cluster = drive_cluster(torch, "cuda", 100_000, 2_000, timed=True)
+    torch.cuda.synchronize()
+    launched = DISPATCHES.snapshot()
+    say(f"[cluster] done in {time.perf_counter() - t0:.3f}s; dispatches "
+        f"{json.dumps(vars(launched))}")
+    check(launched.kernel_launches > 0, "the cluster path launched no kernel")
+    check(launched.kernel_launches == launched.launches,
+          "a dot_seen dispatch on the cluster path missed the CUDA kernel")
+    ring = cluster.ring
+    groups = [[(cluster.vnodes[a], ring.storage_set(SET, pid))
+               for a in ring.owners(pid)] for pid in ring.partitions()]
+    clock_launched = phase_clock_entry(torch, cluster, groups)
+    return launched, clock_launched
+
+
+def phase_cluster_parity(torch):
+    cpu, _ = drive_cluster(torch, "cpu", 20_000, 400)
+    cuda, _ = drive_cluster(torch, "cuda", 20_000, 400)
+    check(len(cpu["pages"]) == len(cuda["pages"]),
+          "cpu and cuda page counts differ on the cluster path")
+    for i, (a, b) in enumerate(zip(cpu["pages"], cuda["pages"])):
+        check(a == b, f"cluster page {i} differs between cpu and cuda")
+    for run in (cpu, cuda):  # wall seconds differ by nature
+        for key in ("heal", "antientropy", "removes"):
+            run[key].pop("seconds")
+    for key in ("count", "ring", "ae", "net", "recovery", "heal", "handoff",
+                "antientropy", "removes"):
+        check(cpu[key] == cuda[key],
+              f"cluster {key} differs between cpu and cuda: "
+              f"{cpu[key]} != {cuda[key]}")
+    say(f"[cluster parity] cpu and cuda agree at 20000 elements: "
+        f"{len(cpu['pages'])} pages, bytes sent {cpu['net'][0]}, "
+        f"anti-entropy {json.dumps(cpu['ae'])}, ring "
+        f"{json.dumps(cpu['ring'])}")
 
 
 # ------------------------------------------------------------- model path
@@ -2777,6 +3123,8 @@ def main() -> int:
         clock_launched = run(phase_clock_entry, torch, cluster)
         del cluster
         run(phase_parity, torch)
+        cluster_launched, cluster_clock = run(phase_cluster, torch)
+        run(phase_cluster_parity, torch)
         # each serve and training path's attention launches, by path
         flash, decode, bwd = {}, {}, {}
         flash[MODEL_ARCH], decode[MODEL_ARCH] = run(phase_model, torch, np)
@@ -2812,7 +3160,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/dot_seen/csrc/dot_seen.cu",
         "replaces": "src/repro/kernels/dot_seen/kernel.py:53",
-        "launches": launched.kernel_launches,
+        "launches": launched.kernel_launches + cluster_launched.kernel_launches,
+        "launches_by_path": {"main": launched.kernel_launches,
+                             "cluster": cluster_launched.kernel_launches},
         "max_abs_err": max(r["max_abs_err"] for r in kres.values()),
         "ms": path["ms"],
         "plain_ms": path["plain_ms"],
@@ -2868,18 +3218,21 @@ def main() -> int:
         "shape": f"{mpath['shape']},bf16",
     })
     tomb = cres["tomb"]
-    for name, replaces, ledger, res in (
+    for name, replaces, op, res in (
             ("clock_merge", "src/repro/kernels/clock_ops/kernel.py:91",
-             clock_launched["merge"], dict(tomb["join"], **{
+             "merge", dict(tomb["join"], **{
                  k: tomb[k] for k in ("bound_ms", "bound_by")})),
             ("clock_popcount", "src/repro/kernels/clock_ops/kernel.py:132",
-             clock_launched["popcount"], tomb["popcount"])):
+             "popcount", tomb["popcount"])):
+        by_path = {"main": clock_launched[op].kernel_launches,
+                   "cluster": cluster_clock[op].kernel_launches}
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": "src/repro_torch/kernels/clock_ops/csrc/clock_ops.cu",
             "replaces": replaces,
-            "launches": ledger.kernel_launches,
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in cres.values()),
             "ms": res["ms"],
             "plain_ms": res["plain_ms"],
