@@ -25,8 +25,12 @@ Phases, each printed as it runs; any failure exits non-zero:
    at the model serve path's shapes (global and local layers: a window of
    1,024 in prefill, a ring of 1,024 slots in decode), the MoE serve
    paths' (16 over 8 heads of 64, 48 over 8 of 128), the hybrid's (64
-   over 8 of 128) and a stress shape
-   (head dim 256, MHA, ragged lengths), within the CPU tests' tolerances.
+   over 8 of 128), the encoder-decoder's (6 heads of 64, not causal:
+   a decode step's cross-attention, one query against 1,500 encoder
+   positions, a training microbatch's cross-attention, 448 against 1,500,
+   and its encoder, 1,500 against 1,500; decode at 448 slots) and a stress
+   shape (head dim 256, MHA, ragged lengths), within the CPU tests'
+   tolerances.
    It times the wrapper and the device (a CUDA graph of launches) with
    CUDA events, the plain version, and, beside each attention kernel,
    PyTorch's ``scaled_dot_product_attention`` on the same inputs and mask
@@ -127,7 +131,9 @@ Phases, each printed as it runs; any failure exits non-zero:
     the training path's shape (24 over 8 heads, T = S = 4,096, D = 128,
     causal, bf16), a ``gemma3-27b`` local layer (window 1,024), MHA at
     D = 256, T = 63, the MoE training shape (16 over 8 heads, T = 4,096,
-    D = 64) (bf16, all on the tensor-core route) and fp32 (the
+    D = 64), the encoder-decoder's training microbatch (64 rows, 6 heads
+    of 64, not causal: cross-attention at 448 against 1,500 positions,
+    the encoder at 1,500) (bf16, all on the tensor-core route) and fp32 (the
     SIMT route), each shape's route printed and counted (rtol 1e-4 /
     atol 1e-5 in fp32; in bf16
     rtol 1.6e-2 / atol 1e-3 and 1e-3 in norm against the plain version,
@@ -191,12 +197,33 @@ Phases, each printed as it runs; any failure exits non-zero:
     one mixed group of 8 layers and one in the tail) served on ``cpu`` and
     on ``cuda``: identical greedy streams and logits within 1e-4; then
     ``train parity`` and two deterministic ``grad_step``s bit-equal, which
-    run the scan's backward, attention's and the MoE dispatch's together.
+    run the scan's backward, attention's and the MoE dispatch's together;
+26. whisper serve — the full ``whisper-tiny`` (4 encoder and 4 decoder
+    layers, d_model 384, 6 heads of 64) in bf16 with random weights
+    through ``Model.prefill_step`` and ``decode_step``: 32 requests of a
+    4-token prompt and 1,500 seeded bf16 frames, one prefill, 444 greedy
+    decode steps to position 447; the attention counts are zeroed just
+    before and read just after: prefill attention by kind (encoder,
+    decoder self-attention, cross-attention, the latter also in every
+    decode step), all on the tensor-core route, and the decode kernel a
+    decoder layer and step; prefill ms split into encoder and decoder,
+    decode ms a step beside the floor of its reads, peak memory;
+27. whisper train — ``Model.train_step`` on the full ``whisper-tiny``
+    (bf16, fp32 moments, remat, 4 microbatches) at a global batch of 256
+    rows of 449 tokens and 1,500 frames, a warm-up step, two timed and one
+    profiled: every attention forward and backward on the kernels' tensor
+    cores; step ms, decoder tokens/s, ``mfu`` with the encoder-decoder's
+    terms, peak memory, busy share;
+28. whisper parity — the smoke ``whisper-tiny`` (fp32) on ``cpu`` and on
+    ``cuda``: a prefill with frames and 12 greedy decode steps give
+    identical tokens and logits within 1e-4; one ``train_step`` with
+    frames as ``train parity``.
 
 Each phase prints its seconds (``[time]``).  The line before the last is
 one JSON object with every kernel's numbers (the attention kernels' and
 the scan's launches summed over the serve and training paths, with each
-path's count beside); the last line is
+path's count beside; the encoder-decoder's as ``whisper-tiny serve`` and
+``whisper-tiny train``); the last line is
 ``{"ok": true, "device": {...}}``.  The script imports
 neither ``jax`` nor the JAX package ``repro``.
 """
@@ -530,16 +557,30 @@ def phase_kernels(torch, np):
 # MoE serve paths' shapes: granite-moe-1b-a400m's 16 over 8 heads of 64 and
 # grok-1-314b's 48 over 8 heads of 128; the hybrid's, jamba-1.5-large-398b's
 # 64 over 8 heads of 128.  The stress shapes take head dim 256, MHA and
-# ragged lengths.
+# ragged lengths.  The encoder-decoder's (whisper-tiny: 6 heads of 64, 1,500
+# encoder positions, not causal): a decode step's cross-attention (32 rows,
+# one query each), a training microbatch's cross-attention (64 rows of 448
+# decoder positions) and its encoder self-attention, and a decode step of
+# its 448-slot self-attention cache.
 FLASH_SHAPES = {
-    "path": dict(B=1, Hq=32, Hkv=16, T=1536, S=1536, D=128, window=None),
+    "path": dict(B=1, Hq=32, Hkv=16, T=1536, S=1536, D=128, window=None,
+                 causal=True),
     "path-local": dict(B=1, Hq=32, Hkv=16, T=1536, S=1536, D=128,
-                       window=1024),
-    "path-moe": dict(B=1, Hq=16, Hkv=8, T=1536, S=1536, D=64, window=None),
-    "path-grok": dict(B=1, Hq=48, Hkv=8, T=1536, S=1536, D=128, window=None),
+                       window=1024, causal=True),
+    "path-moe": dict(B=1, Hq=16, Hkv=8, T=1536, S=1536, D=64, window=None,
+                     causal=True),
+    "path-grok": dict(B=1, Hq=48, Hkv=8, T=1536, S=1536, D=128, window=None,
+                      causal=True),
     "path-jamba": dict(B=1, Hq=64, Hkv=8, T=1536, S=1536, D=128,
-                       window=None),
-    "stress": dict(B=2, Hq=8, Hkv=8, T=777, S=1000, D=256, window=None),
+                       window=None, causal=True),
+    "stress": dict(B=2, Hq=8, Hkv=8, T=777, S=1000, D=256, window=None,
+                   causal=True),
+    "cross-1": dict(B=32, Hq=6, Hkv=6, T=1, S=1500, D=64, window=None,
+                    causal=False),
+    "cross": dict(B=64, Hq=6, Hkv=6, T=448, S=1500, D=64, window=None,
+                  causal=False),
+    "encoder": dict(B=64, Hq=6, Hkv=6, T=1500, S=1500, D=64, window=None,
+                    causal=False),
 }
 DECODE_SHAPES = {
     "path": dict(B=4, Hq=32, Hkv=16, S=2048, D=128, window=None,
@@ -555,18 +596,23 @@ DECODE_SHAPES = {
                        lens=[1537, 1281, 9, 700]),
     "stress": dict(B=3, Hq=8, Hkv=8, S=4096, D=256, window=1000,
                    lens=[1, 2500, 4096]),
+    # whisper-tiny's decoder: 32 rows of 448 slots, lengths 5..439
+    "whisper": dict(B=32, Hq=6, Hkv=6, S=448, D=64, window=None,
+                    lens=list(range(5, 449, 14))),
 }
 ATTN_TOL = {"flash_attention": {"bfloat16": 2e-2, "float32": 2e-5},
             "decode_attention": {"bfloat16": 3e-2, "float32": 2e-5}}
 
 
-def _visible_pairs(T: int, S: int, window) -> int:
-    """(query, key) pairs a causal prefill computes, queries at the tail."""
+def _visible_pairs(T: int, S: int, window, causal: bool = True) -> int:
+    """(query, key) pairs a prefill computes, queries at the tail."""
+    if not causal and window is None:
+        return T * S
     total = 0
     for i in range(T):
         qpos = i + S - T
         lo = max(0, qpos - window + 1) if window else 0
-        total += max(0, min(S, qpos + 1) - lo)
+        total += max(0, (min(S, qpos + 1) if causal else S) - lo)
     return total
 
 
@@ -617,39 +663,40 @@ def phase_attention_kernels(torch):
             k = torch.randn((s["B"], s["Hkv"], s["S"], s["D"]), generator=gen,
                             device="cuda", dtype=dtype)
             v = torch.randn(k.shape, generator=gen, device="cuda", dtype=dtype)
-            w = s["window"]
+            w, c = s["window"], s["causal"]
             scale = s["D"] ** -0.5
             route = flash_route(dtype, s["D"])
             before = ROUTE_LAUNCHES[route]
-            got = flash_attention(q, k, v, causal=True, window=w)
+            got = flash_attention(q, k, v, causal=c, window=w)
             torch.cuda.synchronize()
             check(ROUTE_LAUNCHES[route] == before + 1,
                   f"flash_attention {shape} {dname}: not on the {route} route")
-            want = attention_ref(q, k, v, causal=True, window=w)
+            want = attention_ref(q, k, v, causal=c, window=w)
             err = float((got.float() - want.float()).abs().max())
             tol = ATTN_TOL["flash_attention"][dname]
             check(_allclose(got, want, tol),
                   f"flash_attention {shape} {dname}: max abs err {err}")
-            pairs = _visible_pairs(s["T"], s["S"], w)
+            pairs = _visible_pairs(s["T"], s["S"], w, c)
             ops = 4 * s["D"] * pairs * s["Hq"] * s["B"]
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
             bound_ms, bound_by = _bound(nbytes, ops, dname)
             res = dict(shape=f"B={s['B']},Hq={s['Hq']},Hkv={s['Hkv']},"
-                       f"T={s['T']},S={s['S']},D={s['D']},window={w}",
+                       f"T={s['T']},S={s['S']},D={s['D']},window={w},"
+                       f"causal={c}",
                        dtype=dname, route=route, max_abs_err=err,
                        bound_ms=bound_ms, bound_by=bound_by, ops=ops,
                        bytes=nbytes)
             if dtype == torch.bfloat16:
                 iters = 10
                 res["ms"] = time_ms(torch, lambda: flash_attention(
-                    q, k, v, causal=True, window=w), iters)
+                    q, k, v, causal=c, window=w), iters)
                 res["device_ms"] = graph_ms(torch, lambda: flash_attention_cuda(
-                    q, k, v, causal=True, window=w, scale=scale), iters)
+                    q, k, v, causal=c, window=w, scale=scale), iters)
                 res["plain_ms"] = time_ms(torch, lambda: attention_ref(
-                    q, k, v, causal=True, window=w), iters)
+                    q, k, v, causal=c, window=w), iters)
                 qpos = torch.arange(s["T"], device="cuda")[:, None] + s["S"] - s["T"]
                 kpos = torch.arange(s["S"], device="cuda")[None, :]
-                mask = kpos <= qpos
+                mask = kpos <= qpos if c else None
                 if w is not None:
                     mask &= kpos > qpos - w
                 res["library_ms"], lib = _sdpa_ms(torch, q, k, v, mask, iters)
@@ -2115,17 +2162,24 @@ def phase_moe_parity(torch, np):
 # (granite-moe-1b-a400m: 16 over 8 heads of 64, 4,096 tokens), and fp32.
 BWD_SHAPES = {
     "path": dict(B=1, Hq=24, Hkv=8, T=4096, S=4096, D=128, window=None,
-                 dtype="bfloat16"),
+                 causal=True, dtype="bfloat16"),
     "local": dict(B=1, Hq=32, Hkv=16, T=2048, S=2048, D=128, window=1024,
-                  dtype="bfloat16"),
+                  causal=True, dtype="bfloat16"),
     "mha-256": dict(B=1, Hq=16, Hkv=16, T=1024, S=1024, D=256, window=None,
-                    dtype="bfloat16"),
+                    causal=True, dtype="bfloat16"),
     "ragged": dict(B=1, Hq=24, Hkv=8, T=63, S=63, D=128, window=None,
-                   dtype="bfloat16"),
+                   causal=True, dtype="bfloat16"),
     "moe-path": dict(B=1, Hq=16, Hkv=8, T=4096, S=4096, D=64, window=None,
-                     dtype="bfloat16"),
+                     causal=True, dtype="bfloat16"),
+    # whisper-tiny's training microbatch (64 rows, 6 heads of 64): its
+    # cross-attention (448 decoder positions against 1,500 encoder ones)
+    # and its encoder, neither causal
+    "cross": dict(B=64, Hq=6, Hkv=6, T=448, S=1500, D=64, window=None,
+                  causal=False, dtype="bfloat16"),
+    "encoder": dict(B=64, Hq=6, Hkv=6, T=1500, S=1500, D=64, window=None,
+                    causal=False, dtype="bfloat16"),
     "fp32": dict(B=1, Hq=24, Hkv=8, T=1024, S=1024, D=128, window=None,
-                 dtype="float32"),
+                 causal=True, dtype="float32"),
 }
 # B4''s tolerances by dtype and reference: (rtol, atol) elementwise or
 # None, and the largest ||g - ref|| / ||ref|| or None.  fp32 as the CPU
@@ -2205,7 +2259,7 @@ def _wrong_bwd(torch, fa, q, k, v, out, dout, lse, window, refs,
     return read
 
 
-def _sdpa_bwd_ms(torch, q, k, v, dout, window, iters):
+def _sdpa_bwd_ms(torch, q, k, v, dout, window, iters, causal=True):
     """The backward alone of PyTorch's fused attention on the same inputs,
     through ``torch.autograd.grad`` (a yardstick the port never calls):
     (ms, its gradients)."""
@@ -2213,7 +2267,9 @@ def _sdpa_bwd_ms(torch, q, k, v, dout, window, iters):
 
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
     T, S = q.shape[2], k.shape[2]
-    if window is None and T == S:
+    if not causal and window is None:
+        out = F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+    elif window is None and T == S:
         out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                              enable_gqa=True)
     else:
@@ -2242,8 +2298,8 @@ def phase_attention_bwd(torch, fwd_path_ms):
     for shape, s in BWD_SHAPES.items():
         dtype = getattr(torch, s["dtype"])
         gen.manual_seed(11)
-        B, Hq, Hkv, T, S, D, w = (s[n] for n in ("B", "Hq", "Hkv", "T", "S",
-                                                 "D", "window"))
+        B, Hq, Hkv, T, S, D, w, c = (s[n] for n in (
+            "B", "Hq", "Hkv", "T", "S", "D", "window", "causal"))
         q = torch.randn((B, Hq, T, D), generator=gen, device="cuda",
                         dtype=dtype)
         k = torch.randn((B, Hkv, S, D), generator=gen, device="cuda",
@@ -2252,7 +2308,7 @@ def phase_attention_bwd(torch, fwd_path_ms):
         dout = torch.randn(q.shape, generator=gen, device="cuda", dtype=dtype)
         scale = D ** -0.5
         lse = torch.empty((B, Hq, T), dtype=torch.float32, device="cuda")
-        out = fa.flash_attention_cuda(q, k, v, causal=True, window=w,
+        out = fa.flash_attention_cuda(q, k, v, causal=c, window=w,
                                       scale=scale, lse=lse)
         route = fa.flash_bwd_route(dtype)
         check(route == ("tc" if s["dtype"] == "bfloat16" else "simt"),
@@ -2260,19 +2316,19 @@ def phase_attention_bwd(torch, fwd_path_ms):
               f"takes the {route} route")
         before = fa.BWD_DISPATCHES.kernel_launches
         by_route = fa.BWD_ROUTE_LAUNCHES[route]
-        got = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=True,
+        got = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=c,
                                      window=w)
         torch.cuda.synchronize()
         check(fa.BWD_DISPATCHES.kernel_launches == before + 1
               and fa.BWD_ROUTE_LAUNCHES[route] == by_route + 1,
               f"flash_attention backward {shape}: not on the kernel's "
               f"{route} route")
-        want = fa.attention_bwd_ref(q, k, v, out, dout, lse, causal=True,
+        want = fa.attention_bwd_ref(q, k, v, out, dout, lse, causal=c,
                                     window=w)
         # autograd of the plain attention, in fp32 on the same values
         leaves_ = [t.float().requires_grad_() for t in (q, k, v)]
         exact = torch.autograd.grad(
-            fa.attention_ref(*leaves_, causal=True, window=w), leaves_,
+            fa.attention_ref(*leaves_, causal=c, window=w), leaves_,
             dout.float())
         del leaves_
         errs, auto_errs, rel_errs = [], [], {}
@@ -2288,7 +2344,7 @@ def phase_attention_bwd(torch, fwd_path_ms):
                 check(_grad_ok(g, ref, s["dtype"], tag),
                       f"flash_attention backward {shape} {name} against the "
                       f"{what}: max abs err {mx}, relative in norm {rel}")
-        again = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=True,
+        again = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=c,
                                        window=w)
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               f"flash_attention backward {shape}: two calls differ")
@@ -2297,11 +2353,11 @@ def phase_attention_bwd(torch, fwd_path_ms):
                  if shape == "path" else None)
         # the library's own gradients against the plain version, in norm
         iters = 3 if shape == "path" else 5
-        lib_ms, lib = _sdpa_bwd_ms(torch, q, k, v, dout, w, iters)
+        lib_ms, lib = _sdpa_bwd_ms(torch, q, k, v, dout, w, iters, c)
         lib_errs = {f"{name}_vs_plain": _grad_err(g, p)[1]
                     for name, g, p in zip(("dq", "dk", "dv"), lib, want)}
         del exact, want, again, lib
-        pairs = _visible_pairs(T, S, w)
+        pairs = _visible_pairs(T, S, w, c)
         # five products of the visible pairs; q, k, v, o, dO and lse read,
         # dq, dk, dv written once
         ops = 10 * D * pairs * Hq * B
@@ -2309,26 +2365,26 @@ def phase_attention_bwd(torch, fwd_path_ms):
             + 4 * lse.numel()
         bound_ms, bound_by = _bound(nbytes, ops, s["dtype"])
         res = dict(shape=f"B={B},Hq={Hq},Hkv={Hkv},T={T},S={S},D={D},"
-                   f"window={w}", dtype=s["dtype"], route=route,
+                   f"window={w},causal={c}", dtype=s["dtype"], route=route,
                    max_abs_err=max(errs),
                    max_abs_err_vs_fp32_autograd=max(auto_errs),
                    rel_norm_err=rel_errs,
                    bound_ms=bound_ms, bound_by=bound_by, ops=ops,
                    bytes=nbytes)
         res["ms"] = time_ms(torch, lambda: fa.flash_attention_bwd(
-            q, k, v, out, dout, lse, causal=True, window=w), iters, warmup=1)
+            q, k, v, out, dout, lse, causal=c, window=w), iters, warmup=1)
         res["device_ms"] = graph_ms(torch, lambda: fa.flash_attention_bwd_cuda(
-            q, k, v, out, dout, lse, causal=True, window=w, scale=scale),
+            q, k, v, out, dout, lse, causal=c, window=w, scale=scale),
             iters)
         res["plain_ms"] = time_ms(torch, lambda: fa.attention_bwd_ref(
-            q, k, v, out, dout, lse, causal=True, window=w), 2, warmup=1)
+            q, k, v, out, dout, lse, causal=c, window=w), 2, warmup=1)
         res["library_ms"] = lib_ms
         res["library_rel_norm_err"] = lib_errs
         if wrong is not None:
             res["wrong_gradients_rejected"] = wrong
             # where the device time goes: ms a call by kernel
             by_name, _ = _trace(torch, lambda: fa.flash_attention_bwd_cuda(
-                q, k, v, out, dout, lse, causal=True, window=w, scale=scale),
+                q, k, v, out, dout, lse, causal=c, window=w, scale=scale),
                 iters)
             names = {n: re.search(r"attn_bwd_\w+(<[^>]*>)?", n)
                      for n in by_name}
@@ -2989,11 +3045,22 @@ def phase_train_parity(torch, np):
     train_parity(torch, np, TRAIN_ARCH)
 
 
+def _attention_calls(cfg) -> int:
+    """Prefill-attention calls of one ``train`` forward without remat: a
+    self-attention a layer with attention and, for an encoder-decoder fed
+    frames, an encoder layer's self-attention and a decoder layer's
+    cross-attention."""
+    n = _mixers(cfg)[0]
+    if cfg.is_encoder_decoder:
+        n += cfg.n_encoder_layers + cfg.n_layers
+    return n
+
+
 def train_parity(torch, np, arch: str):
     """One ``train_step`` of the smoke ``arch`` (fp32) from the same state
-    on cpu and on cuda: the loss within 1e-4, every parameter after the
-    step within rtol 1e-4 / atol 1e-5; the cuda step's attention and scans
-    on the kernels."""
+    on cpu and on cuda (an encoder-decoder fed seeded frames): the loss
+    within 1e-4, every parameter after the step within rtol 1e-4 / atol
+    1e-5; the cuda step's attention and scans on the kernels."""
     from repro_torch.configs import smoke_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms
@@ -3005,15 +3072,19 @@ def train_parity(torch, np, arch: str):
     cpu, gpu = build_model(cfg, "cpu"), build_model(cfg, "cuda")
     state = cpu.init_train_state(0)
     gstate = map_tree(lambda t: t.to("cuda"), state)
-    tok = torch.as_tensor(np.random.default_rng(5).integers(
-        0, cfg.vocab_size, (4, 65)), dtype=torch.int32)
-    state, m_cpu = cpu.train_step(state, {"tokens": tok})
+    rng = np.random.default_rng(5)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (4, 65)), dtype=torch.int32)}
+    if cfg.is_encoder_decoder:
+        batch["encoder_frames"] = torch.as_tensor(rng.standard_normal(
+            (4, cfg.encoder_positions, cfg.d_model)), dtype=torch.float32)
+    state, m_cpu = cpu.train_step(state, batch)
     _reset_attention(fa)
     _reset_scan(ms)
-    gstate, m_gpu = gpu.train_step(gstate, {"tokens": tok.to("cuda")})
+    gstate, m_gpu = gpu.train_step(gstate, tree_to(batch, "cuda"))
     torch.cuda.synchronize()
     fwd, bwd, _, _ = _count_attention(fa)
-    n_attn, n_mamba = _mixers(cfg)
+    n_attn, n_mamba = _attention_calls(cfg), _mixers(cfg)[1]
     check(all(c.kernel_launches == c.launches == n for c, n in (
         (fwd, n_attn), (bwd, n_attn), (ms.DISPATCHES, n_mamba),
         (ms.BWD_DISPATCHES, n_mamba))),
@@ -3097,6 +3168,395 @@ def phase_hybrid_parity(torch, np):
     deterministic_grad_steps(torch, np, HYBRID_ARCH)
 
 
+# ------------------------------------------------------ encoder-decoder
+ENCDEC_ARCH = "whisper-tiny"
+WHISPER_REQUESTS = 32
+WHISPER_PROMPT = 4        # tokens a prompt: Whisper's start-of-transcript prefix
+WHISPER_BATCH = 256       # train_4k's global batch (configs/shapes.py)
+WHISPER_TRAIN_STEPS = 4   # a warm-up, two timed steps, one profiled
+
+
+class AttentionKinds(contextlib.AbstractContextManager):
+    """While installed, the model's prefill-attention calls by kind, each
+    as [calls, CUDA kernel launches, tensor-core launches]: ``encoder``
+    (inside ``encoder_forward``), ``self`` (causal: the decoder's
+    self-attention) and ``cross`` (not causal, outside the encoder); and
+    the seconds spent in ``encoder_forward`` (synchronised on both
+    sides).  It wraps the names the model looks up at call time,
+    ``attention.flash_attention`` and ``transformer.encoder_forward``, and
+    restores them on exit; the wrappers launch nothing themselves."""
+
+    def __init__(self, torch):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.models import attention, transformer
+
+        self.torch, self.fa = torch, fa
+        self.attention, self.transformer = attention, transformer
+        self.counts = {k: [0, 0, 0] for k in ("encoder", "self", "cross")}
+        self.encoder_s = 0.0
+        self._in_encoder = False
+
+    def _flash(self, q, k, v, *, causal=True, **kw):
+        fa = self.fa
+        kind = ("encoder" if self._in_encoder
+                else "self" if causal else "cross")
+        launched, tc = fa.DISPATCHES.kernel_launches, fa.ROUTE_LAUNCHES["tc"]
+        out = self._real_flash(q, k, v, causal=causal, **kw)
+        c = self.counts[kind]
+        c[0] += 1
+        c[1] += fa.DISPATCHES.kernel_launches - launched
+        c[2] += fa.ROUTE_LAUNCHES["tc"] - tc
+        return out
+
+    def _encoder(self, *args, **kw):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self._in_encoder = True
+        try:
+            out = self._real_encoder(*args, **kw)
+        finally:
+            self._in_encoder = False
+        self.torch.cuda.synchronize()
+        self.encoder_s += time.perf_counter() - t0
+        return out
+
+    def __enter__(self):
+        self._real_flash = self.attention.flash_attention
+        self._real_encoder = self.transformer.encoder_forward
+        self.attention.flash_attention = self._flash
+        self.transformer.encoder_forward = self._encoder
+        return self
+
+    def __exit__(self, *exc):
+        self.attention.flash_attention = self._real_flash
+        self.transformer.encoder_forward = self._real_encoder
+        return False
+
+
+def _whisper_parts(cfg, params):
+    """(held parameters, the encoder's, the decoder cross-attention's
+    ``wk`` / ``wv``): the parameters that read each encoder frame."""
+    from repro_torch.tree import leaves
+
+    n = sum(t.numel() for t in leaves(params))
+    enc = sum(t.numel() for t in leaves(params["encoder"]))
+    cross_kv = sum(layer["cross"][w].numel() for layer in params["layers"]
+                   for w in ("wk", "wv"))
+    return n, enc, cross_kv
+
+
+def phase_whisper_serve(torch, np):
+    """The encoder-decoder's serve path: the full ``whisper-tiny`` (4
+    encoder and 4 decoder layers, d_model 384, 6 heads of 64, vocab
+    51,865) in bf16 with random weights (seed 0) on ``cuda``, through
+    ``Model.prefill_step`` and ``decode_step`` as the JAX package serves
+    it (neither package's engine takes frames): 32 requests, each a
+    4-token prompt with 1,500 seeded bf16 frames, one prefill with a
+    448-slot cache, then greedy decode steps to position 447, the last
+    row of the decoder's position table, each step's tokens copied to the
+    host.  The attention counts are zeroed just before and read just
+    after: every call on the kernels, every prefill-attention launch on
+    the tensor-core route, by kind (encoder, decoder self-attention,
+    cross-attention: also 4 a decode step, T = 1 against 1,500
+    positions); one decode-attention launch a decoder layer and step.
+    Then the prefill once more, warm, outside the counted run."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves
+
+    cfg = get_config(ENCDEC_ARCH)
+    B, P = WHISPER_REQUESTS, WHISPER_PROMPT
+    steps = cfg.decoder_positions - P
+    model = build_model(cfg, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(0)
+    n, enc, _ = _whisper_parts(cfg, params)
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    dec_bytes = weight_bytes - sum(t.numel() * t.element_size()
+                                   for t in leaves(params["encoder"]))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    frames = torch.randn((B, cfg.encoder_positions, cfg.d_model),
+                         generator=gen, device="cuda", dtype=torch.bfloat16)
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, P)), dtype=torch.int32, device="cuda")
+    say(f"[whisper serve] {cfg.n_encoder_layers} encoder + {cfg.n_layers} "
+        f"decoder layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.head_dim}, vocab {cfg.vocab_size}, {cfg.dtype}: {n} "
+        f"parameters held ({enc} in the encoder; ModelConfig.n_params: "
+        f"{cfg.n_params()}, ROADMAP C12), {weight_bytes / 1e9:.4f} GB; "
+        f"{B} requests of {P} tokens and {cfg.encoder_positions} frames")
+
+    _reset_attention(fa)
+    dec.DISPATCHES.reset()
+    streams, finite = [prompts.cpu()], []
+    with AttentionKinds(torch) as kinds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill_step(
+            params, {"tokens": prompts, "encoder_frames": frames},
+            max_len=cfg.decoder_positions)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        streams.append(tok[:, None].cpu())
+        prefill_s = time.perf_counter() - t0
+        finite.append(torch.isfinite(logits).all())
+        lens = torch.full((B,), P, dtype=torch.int32, device="cuda")
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = model.decode_step(params, cache, tok[:, None],
+                                              lens)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            streams.append(tok[:, None].cpu())  # streamed out each step
+            finite.append(torch.isfinite(logits).all())
+            lens += 1
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    fwd, _, routes, _ = _count_attention(fa)
+    dcount = dec.DISPATCHES.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = torch.cat(streams, dim=1)
+    # the same prefill again, after the counts are read: the first one is
+    # the model's first call, and pays its one-time costs
+    with AttentionKinds(torch) as again:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill_step(params, {"tokens": prompts,
+                                    "encoder_frames": frames},
+                           max_len=cfg.decoder_positions)
+        torch.cuda.synchronize()
+        again_s = time.perf_counter() - t0
+
+    check(int(lens.min()) == int(lens.max()) == cfg.decoder_positions,
+          f"decode ended at cache length {lens.tolist()[:3]}")
+    check(bool(torch.stack(finite).all()), "whisper serve: a logit is not "
+          "finite")
+    check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          "whisper serve: a token is out of the vocabulary")
+    check(cache["enc_out"].dtype == torch.bfloat16
+          and tuple(cache["enc_out"].shape)
+          == (B, cfg.encoder_positions, cfg.d_model),
+          f"the cache's enc_out is {cache['enc_out'].dtype} "
+          f"{tuple(cache['enc_out'].shape)}")
+    want = {"encoder": cfg.n_encoder_layers, "self": cfg.n_layers,
+            "cross": cfg.n_layers * (1 + steps)}
+    got = {k: c[0] for k, c in kinds.counts.items()}
+    check(got == want, f"flash_attention calls by kind {got} != {want}")
+    check(all(c[0] == c[1] == c[2] for c in kinds.counts.values()),
+          f"a flash_attention call missed the kernel's tensor-core route: "
+          f"{kinds.counts}")
+    check(fwd.launches == fwd.kernel_launches == sum(want.values())
+          and routes == {"tc": fwd.launches, "simt": 0},
+          f"flash_attention launches {vars(fwd)}, by route {routes}")
+    check(dcount.launches == dcount.kernel_launches == cfg.n_layers * steps,
+          f"decode_attention launches {vars(dcount)} != {cfg.n_layers} "
+          f"layers x {steps} steps")
+    enc_out_bytes = B * cfg.encoder_positions * cfg.d_model * 2
+    floor_bytes = dec_bytes + cfg.n_layers * enc_out_bytes
+    stats = dict(
+        requests=B, prompt_tokens=B * P, frames=B * cfg.encoder_positions,
+        decode_steps=steps, new_tokens=B * (steps + 1),
+        prefill_ms=prefill_s * 1e3, prefill_encoder_ms=kinds.encoder_s * 1e3,
+        prefill_decoder_ms=(prefill_s - kinds.encoder_s) * 1e3,
+        prefill_again_ms=again_s * 1e3,
+        prefill_again_encoder_ms=again.encoder_s * 1e3,
+        decode_s=decode_s, ms_per_decode_step=decode_s / steps * 1e3,
+        decode_tok_per_s=B * steps / decode_s,
+        # a step reads the decoder's weights and, in each layer's cross
+        # step, the encoder's output, once each
+        decode_floor_bytes=floor_bytes,
+        decode_floor_ms=floor_bytes / PEAK_BYTES_PER_S * 1e3,
+        weight_gb=weight_bytes / 1e9, peak_gb=peak / 1e9,
+        flash_calls_by_kind={k: c[0] for k, c in kinds.counts.items()},
+        flash_kernel_launches_by_kind={k: c[1]
+                                       for k, c in kinds.counts.items()},
+        flash_tc_launches_by_kind={k: c[2] for k, c in kinds.counts.items()},
+        flash=vars(fwd), flash_routes=routes, decode=vars(dcount),
+        distinct_tokens=int(torch.unique(tokens[:, P:]).numel()))
+    say(f"[whisper serve] served: {json.dumps(stats)}")
+    say(f"[whisper serve]   req0's tokens: {tokens[0, :24].tolist()} ...")
+    del model, params, cache, frames, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fwd, dcount
+
+
+def phase_whisper_train(torch, np):
+    """The encoder-decoder's training path: ``Model.train_step`` on the
+    full ``whisper-tiny`` (bf16, fp32 AdamW moments, remat, 4
+    microbatches) with random weights (seed 0), a global batch of 256
+    (``train_4k``'s) rows of 449 tokens (the whole 448-row position
+    table) and 1,500 seeded bf16 frames; a warm-up step, two timed, one
+    profiled.  The attention counts are zeroed just before and read just
+    after: every forward (the encoder's once, the decoder's twice under
+    remat) and backward on the kernels' tensor-core routes.  ``mfu``
+    counts the encoder and the cross ``wk`` / ``wv`` per frame, the other
+    held parameters per decoder token, and 12 flops a head dim, head and
+    visible pair (encoder S^2, decoder causal, cross T x S)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+
+    cfg = get_config(ENCDEC_ARCH)
+    B, T, S = WHISPER_BATCH, cfg.decoder_positions, cfg.encoder_positions
+    mbs = cfg.n_microbatches
+    model = build_model(cfg, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    state = model.init_train_state(0)
+    n, enc, cross_kv = _whisper_parts(cfg, state.params)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    batch = {
+        "tokens": torch.as_tensor(np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (B, T + 1)), dtype=torch.int32,
+            device="cuda"),
+        "encoder_frames": torch.randn((B, S, cfg.d_model), generator=gen,
+                                      device="cuda", dtype=torch.bfloat16)}
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    say(f"[whisper train] {n} parameters held ({enc} encoder, {cross_kv} "
+        f"cross wk/wv), {cfg.dtype}, {cfg.optimizer_moments} moments, "
+        f"remat={cfg.remat}, {mbs} microbatches; batch {B} x {T + 1} "
+        f"tokens and {S} frames; {state_gb:.3f} GB with the batch")
+
+    _reset_attention(fa)
+    step_ms, losses, trace = [], [], None
+
+    def step():
+        nonlocal state
+        state, metrics = model.train_step(state, batch)
+        losses.append(float(metrics["loss"]))
+
+    for i in range(WHISPER_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == WHISPER_TRAIN_STEPS - 1:
+            trace = _trace_busy(torch, step, "[whisper train]")
+        else:
+            step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    fwd, bwd, routes, bwd_routes = _count_attention(fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    check(all(np.isfinite(losses)) and losses[1] != losses[0],
+          f"whisper training losses {losses}")
+    calls = mbs * WHISPER_TRAIN_STEPS
+    want_bwd = calls * (cfg.n_encoder_layers + 2 * cfg.n_layers)
+    want_fwd = calls * (cfg.n_encoder_layers
+                        + 2 * cfg.n_layers * (2 if cfg.remat else 1))
+    check(fwd.launches == fwd.kernel_launches == want_fwd
+          and routes == {"tc": want_fwd, "simt": 0},
+          f"flash_attention forward {vars(fwd)}, by route {routes} != "
+          f"{want_fwd}")
+    check(bwd.launches == bwd.kernel_launches == want_bwd
+          and bwd_routes == {"tc": want_bwd, "simt": 0},
+          f"flash_attention backward {vars(bwd)}, by route {bwd_routes} != "
+          f"{want_bwd}")
+    frames, tokens = B * S, B * T
+    pairs = (cfg.n_encoder_layers * S * S
+             + cfg.n_layers * _visible_pairs(T, T, None)
+             + cfg.n_layers * T * S)
+    flops = (6 * (enc + cross_kv) * frames + 6 * (n - enc - cross_kv) * tokens
+             + 12 * cfg.n_heads * cfg.head_dim * pairs * B)
+    timed = step_ms[1:-1]
+    warm = sum(timed) / len(timed)
+    stats = dict(
+        steps=WHISPER_TRAIN_STEPS, losses=losses, step_ms=step_ms,
+        timed_steps=len(timed), warm_step_ms=warm,
+        warm_step_ms_spread=[min(timed), max(timed)], n_params=n,
+        encoder_params=enc, cross_kv_params=cross_kv,
+        n_params_config=cfg.n_params(), frames_per_step=frames,
+        decoder_tokens_per_step=tokens,
+        decoder_tokens_per_s=tokens / warm * 1e3,
+        model_flops_per_step=flops,
+        mfu=flops / (warm / 1e3) / PEAK_BF16_OPS_PER_S,
+        state_gb=state_gb, peak_gb=peak_gb, flash_forward=vars(fwd),
+        flash_backward=vars(bwd), expected_forward=want_fwd,
+        expected_backward=want_bwd)
+    if trace is not None:
+        device_ms, wall_ms, classes, top = trace
+        stats.update(traced_device_ms=device_ms, traced_wall_ms=wall_ms,
+                     device_busy_share=device_ms / wall_ms,
+                     device_ms_by_class=classes, top_kernels_ms=top)
+    say(f"[whisper train] trained: {json.dumps(stats)}")
+    del model, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def whisper_stream(torch, np, cfg, params, device: str):
+    """Greedy tokens (a list a row) and logits (on the cpu) of a seeded
+    prefill of four 7-token prompts with seeded fp32 frames and 12 greedy
+    decode steps, on ``device``."""
+    from repro_torch.models import build_model
+
+    model = build_model(cfg, device)
+    rng = np.random.default_rng(4)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (4, 7)), dtype=torch.int32, device=device),
+        "encoder_frames": torch.as_tensor(rng.standard_normal(
+            (4, cfg.encoder_positions, cfg.d_model)), dtype=torch.float32,
+            device=device)}
+    logits, cache = model.prefill_step(params, batch, max_len=64)
+    out, toks = [logits.cpu()], [torch.argmax(logits, -1)]
+    lens = torch.full((4,), 7, dtype=torch.int32, device=device)
+    for _ in range(12):
+        logits, cache = model.decode_step(params, cache,
+                                          toks[-1][:, None].to(torch.int32),
+                                          lens)
+        out.append(logits.cpu())
+        toks.append(torch.argmax(logits, -1))
+        lens += 1
+    return torch.stack(toks, 1).tolist(), out
+
+
+def phase_whisper_parity(torch, np):
+    """The smoke ``whisper-tiny`` (fp32) on cpu and on cuda: a prefill with
+    frames and 12 greedy decode steps give identical tokens and logits
+    within 1e-4, every attention call on the kernels; then
+    ``train_parity`` with frames."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config(ENCDEC_ARCH)
+    params = build_model(cfg, "cpu").init(0)
+    # the tied embedding dominates the residual stream at random init, as
+    # in smoke_parity: a smaller one makes the streams depend on the layers
+    params["embed"]["tok"] *= 0.05
+    cpu_toks, cpu_logits = whisper_stream(torch, np, cfg, params, "cpu")
+    _reset_attention(fa)
+    dec.DISPATCHES.reset()
+    gpu_toks, gpu_logits = whisper_stream(torch, np, cfg,
+                                          tree_to(params, "cuda"), "cuda")
+    torch.cuda.synchronize()
+    want_flash = cfg.n_encoder_layers + 2 * cfg.n_layers + 12 * cfg.n_layers
+    check(fa.DISPATCHES.kernel_launches == fa.DISPATCHES.launches
+          == want_flash and dec.DISPATCHES.kernel_launches
+          == dec.DISPATCHES.launches == 12 * cfg.n_layers,
+          f"the cuda smoke whisper run: flash {vars(fa.DISPATCHES)} (want "
+          f"{want_flash}), decode {vars(dec.DISPATCHES)}")
+    check(cpu_toks == gpu_toks,
+          f"whisper token streams differ: cpu {cpu_toks} cuda {gpu_toks}")
+    err = max(float((c - g).abs().max())
+              for c, g in zip(cpu_logits, gpu_logits))
+    check(err <= 1e-4, f"whisper: cpu and cuda logits differ by {err}")
+    varied = sum(len(set(t)) > 1 for t in cpu_toks)
+    say(f"[whisper parity] smoke {ENCDEC_ARCH} fp32: identical greedy "
+        f"streams for 4 rows ({varied} of them not a single repeated "
+        f"token); prefill + 12 decode steps' logits within {err:.3g} of "
+        f"the cpu run")
+    train_parity(torch, np, ENCDEC_ARCH)
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -3147,6 +3607,12 @@ def main() -> int:
         run(phase_train_parity, torch, np)
         run(phase_moe_train_parity, torch, np)
         run(phase_hybrid_parity, torch, np)
+        serve_key, train_key = f"{ENCDEC_ARCH} serve", f"{ENCDEC_ARCH} train"
+        flash[serve_key], decode[serve_key] = run(phase_whisper_serve,
+                                                  torch, np)
+        flash[train_key], bwd[train_key] = run(phase_whisper_train, torch,
+                                               np)
+        run(phase_whisper_parity, torch, np)
         leaked = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m == "repro" or m.startswith("repro."))

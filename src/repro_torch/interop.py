@@ -62,7 +62,10 @@ def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any],
     ``x @ w`` computes the same product.  Every leaf keeps its dtype: the
     Mamba mixers' fp32 ``A_log`` and ``Dp`` and the MoE router stay fp32
     in a bf16 model.  An MoE layer's stacked experts ``[n_groups, E, d,
-    f]`` become its own ``[E, d, f]``.
+    f]`` become its own ``[E, d, f]``.  An encoder-decoder's ``encoder``
+    subtree (its list of layers, ``pos`` and ``final_norm``) comes across
+    as it is; its decoder layers' ``norm_cross`` and ``cross`` come with
+    them.
     """
     dev = resolve_device(device)
     n_groups, _, g = _plan(cfg)
@@ -86,6 +89,11 @@ def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any],
         else:
             layers.append(conv(tree["tail"][i - n_groups * g]))
     out["layers"] = layers
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {"layers": [conv(layer) for layer in enc["layers"]],
+                          "pos": conv(enc["pos"]),
+                          "final_norm": conv(enc["final_norm"])}
     return out
 
 

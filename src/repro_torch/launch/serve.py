@@ -13,8 +13,11 @@ Usage:
       --preset full                      # on the card, bf16, random weights
 
 PyTorch port of :mod:`repro.launch.serve`, with ``--device`` (default
-``cuda``: attention and the selective scan run the CUDA kernels).  The
-encoder-decoder is not ported yet and raises.
+``cuda``: attention and the selective scan run the CUDA kernels).  It
+drives decoder-only architectures and refuses the encoder-decoder, as the
+JAX package's launcher does: ``whisper-tiny`` needs encoder frames, and
+is served through ``Model.prefill_step`` and ``decode_step``
+(``chip_smoke.py``'s ``whisper serve`` phase).
 """
 from __future__ import annotations
 

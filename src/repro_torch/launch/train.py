@@ -20,8 +20,10 @@ Usage:
 
 PyTorch port of :mod:`repro.launch.train`, with ``--device`` (default
 ``cuda``: the forward and backward of attention and of the selective
-scan run the CUDA kernels).  The dense, MoE, SSM and hybrid families
-train; the encoder-decoder is not ported yet and raises.
+scan run the CUDA kernels).  Every family trains.  As in the JAX
+package, the trainer's batches hold tokens alone, so ``whisper-tiny``
+trains its decoder with the cross-attention step skipped and its encoder
+untouched (ROADMAP C13).
 """
 from __future__ import annotations
 

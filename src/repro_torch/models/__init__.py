@@ -2,9 +2,9 @@
 assembly.
 
 PyTorch port of :mod:`repro.models`: the serve path and training
-(``loss_fn`` / ``grad_step`` / ``train_step``) of the dense, MoE, SSM and
-hybrid (Mamba beside attention) architectures.  Not yet ported: the
-encoder and ``sharding``.
+(``loss_fn`` / ``grad_step`` / ``train_step``) of the dense, MoE, SSM,
+hybrid (Mamba beside attention) and encoder-decoder architectures.  Not
+yet ported: ``sharding``.
 """
 from .model import Model, TrainState, build_model
 

@@ -1,4 +1,4 @@
-"""Attention blocks: GQA/MHA, causal, sliding-window, KV caching.
+"""Attention blocks: GQA/MHA, causal, sliding-window, cross, KV caching.
 
 PyTorch port of :mod:`repro.models.attention`.  Three execution modes share
 one parameter set:
@@ -16,8 +16,13 @@ one parameter set:
 The JAX package calls its Pallas kernels only when asked (``use_pallas``);
 the port has no such switch.  Decode writes the new token's K and V into
 the cache **in place** (JAX returns an updated copy); the returned cache is
-the same dict.  Cross-attention (``kv_override``) comes with the
-encoder-decoder slice.
+the same dict.  Cross-attention (``kv_override``) projects K and V from
+the encoder's output, with no rope, no mask and no cache, in every mode:
+in decode it is one query a row against every encoder position, through
+the prefill kernel, as the JAX package calls it (``mode="train"``).
+Products follow JAX's type promotion (:func:`~.layers.mm`): an fp32
+encoder output against bf16 weights gives fp32 K and V, which reach the
+kernel in q's type, as the jnp reference casts them.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import flash_attention
-from .layers import dense_init, rope
+from .layers import dense_init, mm, rope
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig,
@@ -101,30 +106,34 @@ def attention_forward(
     *,
     positions: torch.Tensor,                  # [B, T] absolute positions
     mode: str,                                # train | prefill | decode
+    causal: bool = True,
     window: Optional[int] = None,
     cache: Optional[Dict] = None,
     cache_len: Optional[torch.Tensor] = None,  # int32[B]
     kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     max_cache_len: Optional[int] = None,      # prefill: cache capacity
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    if kv_override is not None:
-        raise NotImplementedError(
-            "cross-attention (kv_override) comes with the encoder-decoder "
-            "slice of the port")
     B, T, D = x.shape
     h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
 
-    q = (x @ p["wq"]).reshape(B, T, h, dh)
-    k = (x @ p["wk"]).reshape(B, T, hk, dh)
-    v = (x @ p["wv"]).reshape(B, T, hk, dh)
-    if cfg.pos_embedding == "rope":
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+    q = mm(x, p["wq"]).reshape(B, T, h, dh)
+    if kv_override is None:
+        k = mm(x, p["wk"]).reshape(B, T, hk, dh)
+        v = mm(x, p["wv"]).reshape(B, T, hk, dh)
+        if cfg.pos_embedding == "rope":
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+    else:
+        enc = kv_override[0]  # [B, S_enc, D]
+        S_enc = enc.shape[1]
+        k = mm(enc, p["wk"]).reshape(B, S_enc, hk, dh)
+        v = mm(enc, p["wv"]).reshape(B, S_enc, hk, dh)
+        causal, window = False, None
     q = q.transpose(1, 2)  # [B, H, T, Dh]
 
     new_cache = None
-    if mode == "decode":
+    if mode == "decode" and kv_override is None:
         if cache is None or cache_len is None or T != 1:
             raise ValueError(
                 f"decode mode needs a cache, cache_len, and T == 1 "
@@ -155,12 +164,13 @@ def attention_forward(
             scale=dh ** -0.5)  # [B, H, Dh]
         out = out[:, :, None, :]
     else:
-        k = k.transpose(1, 2).contiguous()  # [B, Hkv, S, Dh]
-        v = v.transpose(1, 2).contiguous()
+        # [B, Hkv, S, Dh]; cross-attention's fp32 K / V in q's type
+        k = k.transpose(1, 2).to(q.dtype).contiguous()
+        v = v.transpose(1, 2).to(q.dtype).contiguous()
         out = flash_attention(
-            q.contiguous(), k, v, causal=True, window=window,
+            q.contiguous(), k, v, causal=causal, window=window,
             scale=dh ** -0.5)
-        if mode == "prefill":
+        if mode == "prefill" and kv_override is None:
             cap = max_cache_len or T
             size = min(cap, window) if window else cap
             keep = min(T, size)
@@ -175,4 +185,4 @@ def attention_forward(
                 new_cache["v_scale"] = vs
 
     out = out.transpose(1, 2).reshape(B, T, h * dh)
-    return out @ p["wo"], new_cache
+    return mm(out, p["wo"]), new_cache

@@ -49,6 +49,17 @@ def init_rmsnorm(d: int, dtype: torch.dtype, device) -> dict:
 
 
 # ------------------------------------------------------------------ applies
+def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the type JAX promotes the pair to, where PyTorch would
+    refuse mixed types: fp32 activations against bf16 weights compute in
+    fp32 (a bf16 encoder-decoder fed fp32 frames runs its encoder, and its
+    cross-attention's K and V, in fp32, as the JAX package does)."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return x.to(dt) @ w.to(dt)
+    return x @ w
+
+
 def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)

@@ -22,7 +22,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from .layers import activation, dense_init
+from .layers import activation, dense_init, mm
 
 
 def init_dense_ffn(gen: torch.Generator, cfg: ModelConfig,
@@ -36,10 +36,10 @@ def init_dense_ffn(gen: torch.Generator, cfg: ModelConfig,
 
 
 def dense_ffn(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    gate = x @ p["wi_gate"]
-    up = x @ p["wi_up"] if "wi_up" in p else None
+    gate = mm(x, p["wi_gate"])
+    up = mm(x, p["wi_up"]) if "wi_up" in p else None
     h = activation(cfg.hidden_act, gate, up)
-    return h @ p["wo_ff"]
+    return mm(h, p["wo_ff"])
 
 
 # ------------------------------------------------------------------------ MoE

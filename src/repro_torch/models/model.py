@@ -115,6 +115,7 @@ class Model:
         inp, tgt = tokens[:, :-1], tokens[:, 1:]
         hidden, _, aux = forward(params, cfg, inp, mode="train",
                                  patch_embeds=batch.get("patch_embeds"),
+                                 encoder_frames=batch.get("encoder_frames"),
                                  return_hidden=True)
         ce = cross_entropy(params, cfg, hidden, tgt, batch.get("mask"))
         return ce + 0.01 * aux
@@ -164,11 +165,13 @@ class Model:
                      max_len: Optional[int] = None) -> Tuple[torch.Tensor, Any]:
         """(logits of the last position ``[B, vocab]``, a fresh cache of
         capacity ``max_len``).  ``batch`` holds ``tokens`` and, for a vision
-        frontend, ``patch_embeds``."""
+        frontend, ``patch_embeds``; for an encoder-decoder,
+        ``encoder_frames``."""
         tokens = batch["tokens"]
         hidden, cache, _ = forward(
             params, self.cfg, tokens, mode="prefill",
-            patch_embeds=batch.get("patch_embeds"), return_hidden=True,
+            patch_embeds=batch.get("patch_embeds"),
+            encoder_frames=batch.get("encoder_frames"), return_hidden=True,
             max_cache_len=max_len or tokens.shape[1] + 64)
         logits = lm_logits(params, self.cfg, hidden[:, -1:, :])[:, 0, :]
         return logits, cache

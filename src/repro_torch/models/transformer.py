@@ -1,5 +1,5 @@
 """Model assembly: the decoder-only LM of the dense, MoE, SSM and hybrid
-architectures.
+architectures, and the encoder-decoder (audio).
 
 PyTorch port of :mod:`repro.models.transformer`.  The JAX package runs its
 layer stack as ``jax.lax.scan`` over *repeating groups* (one group = the
@@ -23,9 +23,15 @@ In ``train`` mode under autograd, ``cfg.remat`` wraps each layer in
 each scanned group or tail layer in ``jax.checkpoint``: the values are
 the same, only what is kept for the backward differs (a layer's input;
 the rest is recomputed, the MoE router too, which on one device with the
-same input selects the same experts).  The encoder-decoder raises
-:class:`NotImplementedError`: it comes with a later slice of the port.
-The vision frontend's ``patch_embeds`` (precomputed, as in the JAX
+same input selects the same experts).
+The encoder-decoder (``whisper-tiny``) runs its encoder unrolled over
+precomputed frames (the audio frontend is a stub in both packages), with
+non-causal self-attention and no remat, as the JAX package does; each
+decoder layer adds a cross-attention step against the encoder's output
+when there is one (from ``encoder_frames``, else from the cache's
+``enc_out``), and skips it otherwise.  Under remat the encoder's output
+is an argument of each recomputed layer, so its gradient reaches the
+encoder.  The vision frontend's ``patch_embeds`` (precomputed, as in the JAX
 package) are spliced over the leading positions after the embedding
 scale and before the learned positions, as the JAX ``forward`` does.
 """
@@ -45,11 +51,7 @@ from .mlp import dense_ffn, init_dense_ffn, init_moe_ffn, moe_ffn
 
 
 def layer_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
-    """(mixer, ffn) of every layer, in order; raises on what the port lacks."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder comes with the encoder-decoder "
-            "slice of the port")
+    """(mixer, ffn) of every (decoder) layer, in order."""
     return [cfg.layer_kind(i) for i in range(cfg.n_layers)]
 
 
@@ -64,13 +66,16 @@ def _plan(cfg: ModelConfig) -> Tuple[int, int, int]:
 
 # ---------------------------------------------------------------------- init
 def init_layer(gen: torch.Generator, cfg: ModelConfig, mixer: str, ffn: str,
-               dtype: torch.dtype) -> Dict:
+               dtype: torch.dtype, cross: bool = False) -> Dict:
     dev = gen.device
     p: Dict[str, Any] = {"norm1": init_rmsnorm(cfg.d_model, dtype, dev)}
     if mixer == "mamba":
         p["mamba"] = init_mamba(gen, cfg, dtype)
     else:
         p["attn"] = init_attention(gen, cfg, dtype)
+    if cross:
+        p["norm_cross"] = init_rmsnorm(cfg.d_model, dtype, dev)
+        p["cross"] = init_attention(gen, cfg, dtype)
     if ffn != "none":
         p["norm2"] = init_rmsnorm(cfg.d_model, dtype, dev)
         p["ffn"] = (init_moe_ffn(gen, cfg, dtype) if ffn == "moe"
@@ -92,8 +97,16 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
         params["embed"]["pos"] = embed_init(gen, length, cfg.d_model, dtype)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype)
-    params["layers"] = [init_layer(gen, cfg, mixer, ffn, dtype)
+    params["layers"] = [init_layer(gen, cfg, mixer, ffn, dtype,
+                                   cross=cfg.is_encoder_decoder)
                         for mixer, ffn in kinds]
+    if cfg.is_encoder_decoder:
+        params["encoder"] = {
+            "layers": [init_layer(gen, cfg, "attn", "dense", dtype)
+                       for _ in range(cfg.n_encoder_layers)],
+            "pos": embed_init(gen, cfg.encoder_positions, cfg.d_model, dtype),
+            "final_norm": init_rmsnorm(cfg.d_model, dtype, dev),
+        }
     return params
 
 
@@ -120,6 +133,10 @@ def init_decode_cache(cfg: ModelConfig, batch: int, length: int,
     if n_groups:
         cache["groups"] = [one(kinds[j][0], (n_groups,)) for j in range(g)]
     cache["tail"] = [one(kinds[n_groups * g + i][0]) for i in range(n_tail)]
+    if cfg.is_encoder_decoder:
+        cache["enc_out"] = torch.zeros(
+            (batch, cfg.encoder_positions, cfg.d_model), dtype=dtype,
+            device=device)
     return cache
 
 
@@ -149,10 +166,12 @@ def _assemble_cache(cfg: ModelConfig, per_layer: List[Dict]) -> Dict:
 # ------------------------------------------------------------------- forward
 def apply_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor, mixer: str,
                 ffn: str, *, positions, mode, cache, cache_len,
+                enc_out: Optional[torch.Tensor] = None,
                 max_cache_len: Optional[int] = None,
                 ) -> Tuple[torch.Tensor, Optional[Dict],
                            Optional[torch.Tensor]]:
-    """(output, new cache, the MoE load-balance loss or None)."""
+    """(output, new cache, the MoE load-balance loss or None).  ``mode``
+    ``"encode"`` is the encoder's (non-causal, no cache)."""
     aux = None
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if mixer == "mamba":
@@ -160,10 +179,18 @@ def apply_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor, mixer: str,
                                        cache=cache)
     else:
         window = cfg.sliding_window if mixer == "attn_local" else None
+        causal = not (cfg.is_encoder_decoder and mode == "encode")
         att, new_cache = attention_forward(
-            p["attn"], cfg, h, positions=positions, mode=mode, window=window,
-            cache=cache, cache_len=cache_len, max_cache_len=max_cache_len)
+            p["attn"], cfg, h, positions=positions, mode=mode, causal=causal,
+            window=window, cache=cache, cache_len=cache_len,
+            max_cache_len=max_cache_len)
     x = x + att
+    if "cross" in p and enc_out is not None:
+        hc = rmsnorm(p["norm_cross"], x, cfg.norm_eps)
+        catt, _ = attention_forward(
+            p["cross"], cfg, hc, positions=positions, mode="train",
+            kv_override=(enc_out, enc_out))
+        x = x + catt
     if ffn != "none":
         h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
         if ffn == "moe":
@@ -175,12 +202,31 @@ def apply_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor, mixer: str,
 
 
 def _train_layer(p: Dict, cfg: ModelConfig, x: torch.Tensor, mixer: str,
-                 ffn: str, positions: torch.Tensor
+                 ffn: str, positions: torch.Tensor,
+                 enc_out: Optional[torch.Tensor]
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer in ``train`` mode (the function remat recomputes)."""
     x, _, aux = apply_layer(p, cfg, x, mixer, ffn, positions=positions,
-                            mode="train", cache=None, cache_len=None)
+                            mode="train", cache=None, cache_len=None,
+                            enc_out=enc_out)
     return x, aux
+
+
+def encoder_forward(params: Dict, cfg: ModelConfig,
+                    frames: torch.Tensor) -> torch.Tensor:
+    """The encoder over precomputed (stub-frontend) frame embeddings
+    ``[B, S, d_model]``: ``[B, S, d_model]``, in the frames' type promoted
+    with the weights' (fp32 frames run a bf16 encoder in fp32, as in
+    JAX)."""
+    enc = params["encoder"]
+    S = frames.shape[1]
+    x = frames + enc["pos"][None, :S, :]
+    pos = torch.arange(S, device=frames.device)[None].expand(
+        frames.shape[:2])
+    for lp in enc["layers"]:
+        x, _, _ = apply_layer(lp, cfg, x, "attn", "dense", positions=pos,
+                              mode="encode", cache=None, cache_len=None)
+    return rmsnorm(enc["final_norm"], x, cfg.norm_eps)
 
 
 def embed_tokens(params: Dict, cfg: ModelConfig,
@@ -207,13 +253,16 @@ def forward(
     cache: Optional[Dict] = None,
     cache_len: Optional[torch.Tensor] = None,  # int32[B]
     patch_embeds: Optional[torch.Tensor] = None,  # [B, P, d_model]
+    encoder_frames: Optional[torch.Tensor] = None,  # [B, S_enc, d_model]
     return_hidden: bool = False,
     max_cache_len: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """Returns (logits | hidden, new_cache, aux): ``aux`` is the fp32 sum
     of the MoE layers' load-balance losses.  Decode updates ``cache`` in
     place and returns it.  For a vision frontend, ``patch_embeds`` replace
-    the first ``P`` (scaled) token embeddings."""
+    the first ``P`` (scaled) token embeddings; an encoder-decoder encodes
+    ``encoder_frames`` (else reads the cache's ``enc_out``), and a
+    prefill's cache holds the encoder's output."""
     dtype = dtype_of(cfg)
     B, T = tokens.shape
     kinds = layer_kinds(cfg)
@@ -231,18 +280,26 @@ def forward(
     if cfg.pos_embedding == "learned":
         x = x + learned_positions(params["embed"]["pos"], positions).to(dtype)
 
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        if encoder_frames is not None:
+            enc_out = encoder_forward(params, cfg, encoder_frames)
+        elif cache is not None:
+            enc_out = cache["enc_out"]
+
     new_caches: List[Dict] = []
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
     for i, (mixer, ffn) in enumerate(kinds):
         if remat:
             x, aux = checkpoint(_train_layer, params["layers"][i], cfg, x,
-                                mixer, ffn, positions, use_reentrant=False)
+                                mixer, ffn, positions, enc_out,
+                                use_reentrant=False)
         else:
             lc = layer_cache(cache, cfg, i) if cache is not None else None
             x, nc, aux = apply_layer(
                 params["layers"][i], cfg, x, mixer, ffn, positions=positions,
-                mode=mode, cache=lc, cache_len=cache_len,
+                mode=mode, cache=lc, cache_len=cache_len, enc_out=enc_out,
                 max_cache_len=max_cache_len)
             new_caches.append(nc if nc is not None else lc)
         if aux is not None:
@@ -259,6 +316,8 @@ def forward(
         new_cache = cache
     elif mode == "prefill":
         new_cache = _assemble_cache(cfg, new_caches)
+        if enc_out is not None:
+            new_cache["enc_out"] = enc_out
     return out, new_cache, aux_total
 
 

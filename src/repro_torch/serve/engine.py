@@ -11,6 +11,11 @@ The engine owns its cache and updates it in place: the splice copies into
 the slot, and a decode step writes each row's new K and V into its ring
 slot, or each Mamba layer's conv window and state.  ``cache_len`` stays on
 the device, and advances for SSM slots too, as in the JAX package.
+
+An encoder-decoder is refused: admission prefills tokens alone, so the
+JAX package's engine cannot serve one either (its serve launcher refuses
+it).  Serve it through ``Model.prefill_step`` with ``encoder_frames``,
+then ``Model.decode_step``.
 """
 from __future__ import annotations
 
@@ -41,6 +46,11 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 4,
                  max_len: int = 256, temperature: float = 0.0, seed: int = 0,
                  device: DeviceLike = None):
+        if cfg.is_encoder_decoder:
+            raise ValueError(
+                f"{cfg.name}: the engine prefills without encoder frames; "
+                "serve an encoder-decoder through Model.prefill_step with "
+                "encoder_frames and Model.decode_step")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(cfg, self.device)

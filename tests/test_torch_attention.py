@@ -269,3 +269,67 @@ def test_decode_split_plan_tiles_the_cache(S, Hkv, B):
     Hq, D = 2 * Hkv, 128
     assert scratch_shapes(B, Hq, Hkv, S, D) == {"ml": (B, Hq, n, 2),
                                                 "acc": (B, Hq, n, D)}
+
+
+# ---------------------------------------------- attention_forward, the block
+# The port's attention block against the JAX package's, with the JAX
+# weights carried across: non-causal self-attention (whisper's encoder),
+# and cross-attention (``kv_override``: K and V from the encoder's output,
+# no rope, no mask) at T < S and T = 1, in train and in decode mode, where
+# the cross step still runs the prefill kernel.  The "bf16-fp32-enc" case
+# is a bf16 block reading an fp32 encoder output: JAX promotes its K and V
+# products to fp32 and the jnp reference casts them back to q's bf16; the
+# port mirrors both steps.
+BLOCK_CASES = [
+    # id, dtype, T, S (encoder positions, or None: self-attention), mode
+    ("noncausal-self", "float32", 24, None, "encode"),
+    ("cross-T-under-S", "float32", 12, 40, "train"),
+    ("cross-T1", "float32", 1, 40, "train"),
+    ("cross-T1-decode-mode", "float32", 1, 40, "decode"),
+    ("cross-bf16", "bfloat16", 12, 40, "train"),
+    ("bf16-fp32-enc", "bfloat16", 1, 40, "train"),
+]
+
+
+@pytest.mark.parametrize("dtype,T,S,mode", [c[1:] for c in BLOCK_CASES],
+                         ids=[c[0] for c in BLOCK_CASES])
+def test_attention_block_noncausal_and_cross_match_jax(dtype, T, S, mode):
+    import jax
+    from repro.configs import smoke_config as jax_smoke_config
+    from repro.models.attention import attention_forward as jax_block
+    from repro.models.attention import init_attention as jax_init
+    from repro_torch.configs import smoke_config
+    from repro_torch.interop import tensor_from_numpy
+    from repro_torch.models.attention import attention_forward
+
+    jcfg = jax_smoke_config("whisper-tiny").replace(dtype=dtype)
+    tcfg = smoke_config("whisper-tiny").replace(dtype=dtype)
+    jdt = getattr(jnp, dtype)
+    jp = jax_init(jax.random.key(3), jcfg, jdt, cross=S is not None)
+    tp = {n: tensor_from_numpy(np.asarray(w), torch.device("cpu"))
+          for n, w in jp.items()}
+    rng = np.random.default_rng(T + (S or 0))
+    B, d = 2, jcfg.d_model
+    jx, tx = _pair(rng, (B, T, d), jdt)
+    pos = np.broadcast_to(np.arange(T)[None], (B, T)).astype(np.int32)
+    kw = dict(mode=mode)
+    jkw, tkw = dict(kw), dict(kw)
+    if S is None:
+        jkw["causal"] = tkw["causal"] = False
+    else:
+        enc_dt = jnp.float32 if dtype == "bfloat16" and T == 1 else jdt
+        je, te = _pair(rng, (B, S, d), enc_dt)
+        jkw["kv_override"] = (je, je)
+        tkw["kv_override"] = (te, te)
+    want, jcache = jax_block(jp, jcfg, jx, positions=jnp.asarray(pos), **jkw)
+    got, tcache = attention_forward(tp, tcfg, tx,
+                                    positions=torch.from_numpy(pos), **tkw)
+    assert jcache is None and tcache is None
+    assert got.shape == want.shape == (B, T, d)
+    assert str(got.dtype).removeprefix("torch.") == str(want.dtype)
+    _close(got, want, jdt, 2e-2)
+    if S is None:
+        # not causal: the first query sees the last key
+        causal, _ = jax_block(jp, jcfg, jx, positions=jnp.asarray(pos),
+                              mode=mode)
+        assert np.abs(np.asarray(causal) - np.asarray(want))[:, 0].max() > 1e-3

@@ -1,8 +1,9 @@
 """The port's CUDA kernels (attention, selective scan, dot-seen, clock
 lattice) against their plain versions, on a card: among them both routes
 of prefill attention (the bf16 tensor-core kernel and the SIMT kernel),
-the split-KV decode kernels at cache lengths on either side of a split
-edge, the scan in fp32 and bf16 on either side of its chunk, ``dot_seen``
+non-causal attention at whisper-tiny's encoder and cross-attention shapes
+(T < S, T = 1 and T = S at S = 1,500), the split-KV decode kernels at
+cache lengths on either side of a split edge, the scan in fp32 and bf16 on either side of its chunk, ``dot_seen``
 on either side of a warp's stride and of its shared-memory staging, the
 clock merge on rows that are canonical already, that need its sort and
 that coalesce into one run, popcount on rows that do not start on 16
@@ -18,7 +19,8 @@ The attention backward (``flash_attention_bwd.cu``) is held against its
 plain version from the same forward output and log-sum-exps (rtol 1e-4 /
 atol 1e-5 in fp32 on the SIMT route; in bf16, on the tensor-core route,
 rtol 1.6e-2 / atol 1e-3, two bf16 steps of each entry, and 1e-3 of each
-gradient's norm), causal or not, windowed, with T above or below S and at
+gradient's norm), causal or not (whisper-tiny's encoder and its
+cross-attention at 448 against 1,500), windowed, with T above or below S and at
 the training path's 24 / 8 grouping over several key tiles, for
 bit-identical repeats,
 and inside the model: gradients reach ``wq`` / ``wk`` / ``wv`` on the
@@ -88,6 +90,33 @@ def test_flash_kernel_matches_plain_on_the_card(cuda, dtype, tol, T, S, D,
     got = flash_attention(q, k, v, causal=True, window=window)
     assert ROUTE_LAUNCHES[route] == launched + 1
     want = attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,T,S", [
+    pytest.param(2, 448, 1500, id="cross-T-under-S"),
+    pytest.param(4, 1, 1500, id="cross-T1"),
+    pytest.param(1, 1500, 1500, id="encoder"),
+    pytest.param(3, 37, 200, id="T-under-S-short"),
+])
+def test_flash_kernel_not_causal_matches_plain(cuda, dtype, tol, B, T, S):
+    # whisper-tiny's encoder (T = S = 1,500) and cross-attention (T < S,
+    # and T = 1 in decode, against 1,500 = 23 x 64 + 28 encoder positions:
+    # a ragged last key tile); 6 heads of 64, fp32 on the SIMT route and
+    # bf16 on the tensor cores, where a T = 1 block has one live row
+    g = torch.Generator(device=cuda).manual_seed(B * 10_000 + T)
+    q = _normal(g, (B, 6, T, 64), dtype, cuda)
+    k = _normal(g, (B, 6, S, 64), dtype, cuda)
+    v = _normal(g, (B, 6, S, 64), dtype, cuda)
+    route = flash_route(dtype, 64)
+    assert route == ("tc" if dtype == torch.bfloat16 else "simt")
+    launched = ROUTE_LAUNCHES[route]
+    got = flash_attention(q, k, v, causal=False)
+    assert ROUTE_LAUNCHES[route] == launched + 1
+    want = attention_ref(q, k, v, causal=False)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
@@ -525,6 +554,12 @@ def test_clock_popcount_kernel_matches_plain_on_the_card(cuda, shape):
     pytest.param(1, 2, 1, 65, 130, 256, None, True, id="D256"),
     pytest.param(1, 4, 2, 77, 77, 16, 9, True, id="narrow-window"),
     pytest.param(1, 4, 2, 130, 100, 64, None, False, id="not-causal"),
+    # whisper-tiny's cross-attention (448 decoder positions against 1,500
+    # encoder positions) and its encoder, 6 heads of 64
+    pytest.param(1, 6, 6, 448, 1500, 64, None, False,
+                 id="cross-not-causal"),
+    pytest.param(1, 6, 6, 1500, 1500, 64, None, False,
+                 id="encoder-not-causal"),
     pytest.param(1, 4, 2, 70, 300, 128, None, True, id="T-under-S-tail"),
     pytest.param(1, 24, 8, 512, 512, 128, None, True,
                  id="train-grouping-24-8"),

@@ -234,12 +234,6 @@ def test_embedding_scale_rounds_to_the_model_dtype():
     assert float(torch.tensor(5376 ** 0.5, dtype=torch.bfloat16)) == 73.5
 
 
-@pytest.mark.parametrize("arch", ["whisper-tiny"])
-def test_later_slices_raise(arch):
-    with pytest.raises(NotImplementedError, match="slice of the port"):
-        build_model(smoke_config(arch), "cpu").init(0)
-
-
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "grok-1-314b"])
 def test_moe_config_builds_with_the_parameter_shapes_of_params_from_jax(arch):
     cfg = smoke_config(arch)

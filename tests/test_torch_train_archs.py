@@ -1,11 +1,9 @@
 """Per-architecture training smoke tests of the port, on the CPU: the case
 ``TestSmoke.test_forward_and_train_step`` of ``tests/test_archs.py`` for
-every architecture the port trains (the dense family, the VLM backbone,
-the MoE family, the SSM and the hybrid), with the initial loss, the MoE
-router's load-balance term included, held to the JAX package's from the
-same parameters (rtol 1e-5); the architecture whose training is not
-ported yet (the encoder-decoder) raises ``NotImplementedError`` rather
-than train something else.
+every architecture (the dense family, the VLM backbone, the MoE family,
+the SSM, the hybrid and the encoder-decoder, fed frames as that case
+feeds them), with the initial loss, the MoE router's load-balance term
+included, held to the JAX package's from the same parameters (rtol 1e-5).
 """
 import numpy as np
 import pytest
@@ -21,8 +19,8 @@ from repro_torch.models import build_model
 
 TRAINED = ["falcon-mamba-7b", "gemma-7b", "gemma3-27b",
            "granite-moe-1b-a400m", "grok-1-314b", "jamba-1.5-large-398b",
-           "minitron-4b", "mistral-large-123b", "pixtral-12b"]
-NOT_YET = sorted(set(ARCHS) - set(TRAINED))
+           "minitron-4b", "mistral-large-123b", "pixtral-12b",
+           "whisper-tiny"]
 
 
 def make_batch(cfg, rng, B=2, T=16):
@@ -31,6 +29,9 @@ def make_batch(cfg, rng, B=2, T=16):
     if cfg.frontend == "vision":
         batch["patch_embeds"] = rng.standard_normal(
             (B, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.is_encoder_decoder:
+        batch["encoder_frames"] = rng.standard_normal(
+            (B, cfg.encoder_positions, cfg.d_model)).astype(np.float32)
     return batch
 
 
@@ -56,10 +57,6 @@ def test_forward_and_train_step(arch):
     assert int(m2["step"]) == 2
 
 
-@pytest.mark.parametrize("arch", NOT_YET)
-def test_training_not_ported_yet_raises(arch):
-    cfg = smoke_config(arch)
-    tokens = torch.zeros((1, 9), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        model = build_model(cfg, "cpu")
-        model.grad_step(model.init(0), {"tokens": tokens})
+
+def test_every_architecture_trains():
+    assert sorted(TRAINED) == sorted(ARCHS)
