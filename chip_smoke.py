@@ -183,10 +183,11 @@ Phases, each printed as it runs; any failure exits non-zero:
     backward); then two deterministic ``grad_step``s of the model at full
     width and 2 layers, bit-equal;
 22. fault tolerance — at full width and 2 layers, ``test_ft.py``'s
-    crash-restore flow at 4,096 tokens: train, checkpoint, a checkpoint
-    host crashes, a restarted fleet restores from the surviving replicas
-    and continues, with losses equal to an uninterrupted run's within
-    rtol 1e-5; save and restore seconds, the store's bytes, peak RSS;
+    crash-restore flow at 4,096 tokens: train 2 steps, checkpoint, a
+    checkpoint host crashes, a restarted fleet restores from the surviving
+    replicas and trains 2 more, with losses equal to an uninterrupted
+    4-step run's within rtol 1e-5; save and restore seconds, the store's
+    bytes, peak RSS;
 23. train parity — one ``train_step`` of the smoke ``minitron-4b`` (fp32)
     from one state on ``cpu`` and on ``cuda``: loss within 1e-4,
     parameters within rtol 1e-4 / atol 1e-5;
@@ -217,13 +218,32 @@ Phases, each printed as it runs; any failure exits non-zero:
 28. whisper parity — the smoke ``whisper-tiny`` (fp32) on ``cpu`` and on
     ``cuda``: a prefill with frames and 12 greedy decode steps give
     identical tokens and logits within 1e-4; one ``train_step`` with
-    frames as ``train parity``.
+    frames as ``train parity``;
+29. dryrun host — the port's dry run (``repro_torch.launch.dryrun``) on
+    this machine's host: ``gemma-7b`` ``train_4k`` on the 16x16 production
+    mesh over a fake 256-rank group, on meta tensors (a prediction, not a
+    measurement): the record's roofline terms, per-device bytes and
+    collective census; FLOPs, argument bytes and collectives above zero,
+    the argument bytes equal to the rules' local shard bytes;
+30. dryrun card — ``gemma-7b`` at full size (28 layers, bf16, random
+    weights) on ``make_host_mesh()``, a 1x1 mesh on this card:
+    ``prefill_32k`` at a global batch of 1 (cut from 32) and
+    ``decode_32k`` at 2 (cut from 128; 3 steps at cache length 32,767),
+    each traced on meta over the same mesh and rules, then run with the
+    parameters, batch and cache as DTensors under the rules; predicted
+    and measured argument bytes equal, predicted peak beside
+    ``max_memory_allocated``, the roofline's time beside the step's;
+    logits bit-equal to the same model's without rules; every attention
+    call on the kernels (prefill on the tensor-core route); then B4 and B5
+    alone at head dim 256 and 32,768 keys beside their bounds and SDPA.
+    Each of these two prints its expected seconds before it runs.
 
 Each phase prints its seconds (``[time]``).  The line before the last is
 one JSON object with every kernel's numbers (the attention kernels' and
 the scan's launches summed over the serve and training paths, with each
 path's count beside; the encoder-decoder's as ``whisper-tiny serve`` and
-``whisper-tiny train``); the last line is
+``whisper-tiny train``, the dry-run cells' as ``gemma-7b prefill_32k`` and
+``gemma-7b decode_32k``); the last line is
 ``{"ok": true, "device": {...}}``.  The script imports
 neither ``jax`` nor the JAX package ``repro``.
 """
@@ -604,18 +624,6 @@ ATTN_TOL = {"flash_attention": {"bfloat16": 2e-2, "float32": 2e-5},
             "decode_attention": {"bfloat16": 3e-2, "float32": 2e-5}}
 
 
-def _visible_pairs(T: int, S: int, window, causal: bool = True) -> int:
-    """(query, key) pairs a prefill computes, queries at the tail."""
-    if not causal and window is None:
-        return T * S
-    total = 0
-    for i in range(T):
-        qpos = i + S - T
-        lo = max(0, qpos - window + 1) if window else 0
-        total += max(0, (min(S, qpos + 1) if causal else S) - lo)
-    return total
-
-
 def _allclose(got, want, tol: float) -> bool:
     """|got - want| <= tol + tol * |want| everywhere (atol = rtol = tol)."""
     g, w = got.float(), want.float()
@@ -645,11 +653,13 @@ def phase_attention_kernels(torch):
     fp32, at the path's and the stress shapes; timings of the bf16 runs."""
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_cuda,
-                                                      decode_attention_ref)
+                                                      decode_attention_ref,
+                                                      decode_work)
     from repro_torch.kernels.flash_attention import (ROUTE_LAUNCHES,
                                                      attention_ref,
                                                      flash_attention,
                                                      flash_attention_cuda,
+                                                     flash_work,
                                                      flash_route)
 
     results = {}
@@ -676,9 +686,7 @@ def phase_attention_kernels(torch):
             tol = ATTN_TOL["flash_attention"][dname]
             check(_allclose(got, want, tol),
                   f"flash_attention {shape} {dname}: max abs err {err}")
-            pairs = _visible_pairs(s["T"], s["S"], w, c)
-            ops = 4 * s["D"] * pairs * s["Hq"] * s["B"]
-            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+            ops, nbytes = flash_work(q, k, c, w)
             bound_ms, bound_by = _bound(nbytes, ops, dname)
             res = dict(shape=f"B={s['B']},Hq={s['Hq']},Hkv={s['Hkv']},"
                        f"T={s['T']},S={s['S']},D={s['D']},window={w},"
@@ -723,9 +731,7 @@ def phase_attention_kernels(torch):
                   f"decode_attention {shape} {dname}: max abs err {err}")
             valid = [min(n, s["S"]) - (max(0, n - w) if w else 0)
                      for n in s["lens"]]
-            ops = 4 * s["D"] * s["Hq"] * sum(valid)
-            nbytes = ((2 * s["Hkv"] * sum(valid) * s["D"] + 2 * q.numel())
-                      * q.element_size() + 4 * s["B"])
+            ops, nbytes = decode_work(q, k, sum(valid))
             bound_ms, bound_by = _bound(nbytes, ops, dname)
             res = dict(shape=f"B={s['B']},Hq={s['Hq']},Hkv={s['Hkv']},"
                        f"S={s['S']},D={s['D']},window={w},lens={s['lens']}",
@@ -797,7 +803,7 @@ def phase_mamba_kernel(torch):
     """The selective-scan kernel against its plain version, ``y`` and the
     final state, at every shape of MAMBA_SHAPES; timings at each."""
     from repro_torch.kernels.mamba_scan import (mamba_scan, mamba_scan_cuda,
-                                                mamba_scan_ref)
+                                                mamba_scan_ref, scan_work)
 
     results = {}
     for shape, s in MAMBA_SHAPES.items():
@@ -814,14 +820,7 @@ def phase_mamba_kernel(torch):
               _allclose(hT, h_want, MAMBA_TOL["float32"]),
               f"mamba_scan {shape}: max abs err y {err_y}, h_T {err_h}")
         B, T, D, N = s["B"], s["T"], s["D"], s["N"]
-        # x, delta read and y written once and B, C read, in the shape's
-        # type; A, D read and h_T written in fp32
-        esize = args[0].element_size()
-        nbytes = (esize * (3 * B * T * D + 2 * B * T * N)
-                  + 4 * (D * N + D + B * D * N))
-        # per state element and step: delta*A, exp, a*h, (dx)*B, +, *C, sum;
-        # per channel and step: delta*x, x*D, +
-        ops = B * T * D * (7 * N + 3)
+        ops, nbytes = scan_work(args[0], N)
         bound_ms, bound_by = _bound(nbytes, ops, "float32")
         # one ex2 per state element and step on the special-function units
         sfu_ms = B * T * D * N / SFU_EX2_PER_S * 1e3
@@ -2357,12 +2356,7 @@ def phase_attention_bwd(torch, fwd_path_ms):
         lib_errs = {f"{name}_vs_plain": _grad_err(g, p)[1]
                     for name, g, p in zip(("dq", "dk", "dv"), lib, want)}
         del exact, want, again, lib
-        pairs = _visible_pairs(T, S, w, c)
-        # five products of the visible pairs; q, k, v, o, dO and lse read,
-        # dq, dk, dv written once
-        ops = 10 * D * pairs * Hq * B
-        nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
-            + 4 * lse.numel()
+        ops, nbytes = fa.flash_work(q, k, c, w, bwd=True)
         bound_ms, bound_by = _bound(nbytes, ops, s["dtype"])
         res = dict(shape=f"B={B},Hq={Hq},Hkv={Hkv},T={T},S={S},D={D},"
                    f"window={w},causal={c}", dtype=s["dtype"], route=route,
@@ -2484,17 +2478,6 @@ def _wrong_scan_bwd(torch, ms, args, dy, got, want, dtype: str, cut: int,
     check(not passes, f"mamba_scan backward: a wrong gradient (the carry "
           f"dropped at {where}, step {cut}) passes the check: {read}")
     return read
-
-
-def _scan_bwd_flops(B, T, D, N) -> int:
-    """B6''s FLOPs, an FMA counted as two, as the 67 TFLOP/s peak counts
-    them.  A state and step: delta*A, exp, the state's recompute
-    (delta x B and an FMA), g (dy C and an FMA), a_t h_{t-1} and g times
-    it, the dB and dC terms and their adds over channels, and the FMAs of
-    the dx, ddelta and dA sums (10 + 5 FMAs); a channel and step: delta*x,
-    the dx sum's scaling, ddelta's FMA, D*dy and its add, dD's FMA (4 + 2
-    FMAs)."""
-    return B * T * D * (20 * N + 8)
 
 
 SCAN_BWD_LAUNCHES = {"carry": "mamba_scan_bwd_carry_kernel",
@@ -2622,13 +2605,8 @@ def phase_mamba_bwd(torch):
                 for where, cut in (("chunk edge", 32),
                                    ("segment end", plan.seg_len))}
             n_edges = edges.shape[1]
-            esize = args[0].element_size()
-            # x, delta, dy read and dx, ddelta written (the inputs' type);
-            # B, C read and dB, dC written; A, D and the edges read, dA, dD
-            # written in fp32
-            nbytes = (esize * (5 * B * T * D + 4 * B * T * N)
-                      + 4 * (2 * D * N + 2 * D) + edges.numel() * 4)
-            ops = _scan_bwd_flops(B, T, D, N)
+            ops, nbytes = ms.scan_work(args[0], N, bwd=True,
+                                       edges=edges.numel())
             bound_ms, bound_by = _bound(nbytes, ops, "float32")
             blocks, threads, smem = mk.bwd_occupancy(N, args[0].dtype)
             # by the plan's arithmetic, not measured
@@ -2936,7 +2914,7 @@ def train_full_model(torch, np, arch: str, n_layers=None):
     # flops a visible pair and head dim in the forward, twice that back);
     # an MoE model counts the parameters a token reaches
     attn = 12 * n_attn * cfg.n_heads * cfg.head_dim \
-        * _visible_pairs(ft.seq_len, ft.seq_len, None) * ft.global_batch
+        * fa.visible_pairs(ft.seq_len, ft.seq_len, None) * ft.global_batch
     flops = 6 * (active if cfg.n_experts else n) * tokens + attn
     timed = step_ms[1:-1]  # warm and unprofiled
     warm = sum(timed) / len(timed)
@@ -2970,10 +2948,13 @@ def train_full_model(torch, np, arch: str, n_layers=None):
 
 def phase_ft(torch, np):
     """The launcher's fault-tolerance flow at full width, 2 layers, with
-    ``test_ft.py``'s crash-restore ``FTConfig`` at 4,096 tokens: an
-    uninterrupted run of 8 steps; then 4 steps (checkpoint at step 4),
+    ``test_ft.py``'s crash-restore ``FTConfig`` at 4,096 tokens, its
+    checkpoint every 2 steps (cut from 4, and the steps from 8 + 8 to
+    4 + 4, to pay for the dry-run phases): an uninterrupted run of 4
+    steps that saves no checkpoint (a save is some 20 s of host copies
+    and reads the state only); then 2 steps (checkpoint at step 2),
     checkpoint host 1 crashes, a restarted fleet restores from the
-    surviving replicas and trains 4 more; the losses must equal the
+    surviving replicas and trains 2 more; the losses must equal the
     uninterrupted run's within rtol 1e-5."""
     import dataclasses
     import gc
@@ -2982,7 +2963,7 @@ def phase_ft(torch, np):
     from repro_torch.runtime.ft import FTConfig, FTTrainer
 
     cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2)
-    ft = FTConfig(n_hosts=3, global_batch=6, seq_len=4096, ckpt_every=4)
+    ft = FTConfig(n_hosts=3, global_batch=6, seq_len=4096, ckpt_every=2)
     say(f"[ft {TRAIN_ARCH}] full width, depth cut from 32 to 2 layers "
         "(BigStore keeps every shard's bytes on the host: the tied "
         "embedding with its fp32 moments is 7.9 GB alone, the 2-layer "
@@ -3003,13 +2984,14 @@ def phase_ft(torch, np):
         return tr
 
     t0 = time.perf_counter()
-    ref = FTTrainer(cfg, ft, device="cuda")
-    ref_losses = ref.train_steps(8)
+    ref = FTTrainer(cfg, dataclasses.replace(ft, ckpt_every=10**9),
+                    device="cuda")
+    ref_losses = ref.train_steps(4)
     del ref
     gc.collect()
     tr = timed_checkpoints(FTTrainer(cfg, ft, device="cuda"))
-    losses_a = tr.train_steps(4)
-    check(len(saves) == 1, "no checkpoint at step 4")
+    losses_a = tr.train_steps(2)
+    check(len(saves) == 1, "no checkpoint at step 2")
     tr.crash_host(1)
     store = tr.store
     del tr
@@ -3021,8 +3003,8 @@ def phase_ft(torch, np):
     step = tr2.restore()
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t1
-    check(step == 4, f"restored at step {step}, not 4")
-    losses_b = tr2.train_steps(4)
+    check(step == 2, f"restored at step {step}, not 2")
+    losses_b = tr2.train_steps(2)
     got = losses_a + losses_b
     err = max(abs(a - b) / abs(b) for a, b in zip(got, ref_losses))
     check(all(np.isfinite(ref_losses)) and err <= 1e-5,
@@ -3459,7 +3441,7 @@ def phase_whisper_train(torch, np):
           f"{want_bwd}")
     frames, tokens = B * S, B * T
     pairs = (cfg.n_encoder_layers * S * S
-             + cfg.n_layers * _visible_pairs(T, T, None)
+             + cfg.n_layers * fa.visible_pairs(T, T, None)
              + cfg.n_layers * T * S)
     flops = (6 * (enc + cross_kv) * frames + 6 * (n - enc - cross_kv) * tokens
              + 12 * cfg.n_heads * cfg.head_dim * pairs * B)
@@ -3557,6 +3539,289 @@ def phase_whisper_parity(torch, np):
     train_parity(torch, np, ENCDEC_ARCH)
 
 
+# The dry run's arch, its 256-rank host cell, and the cells run on the card
+# with their global batches cut to fit one H100 (prefill_32k 32 -> 1,
+# decode_32k 128 -> 2); train_4k does not fit one card (8.54 B parameters
+# with fp32 AdamW moments are over 100 GB) and is not cut.
+DRYRUN_ARCH = "gemma-7b"
+DRYRUN_CARD_CELLS = (("prefill_32k", 1), ("decode_32k", 2))
+DRYRUN_DECODE_STEPS = 3
+
+
+def _expect(phase: str, seconds: str) -> None:
+    say(f"[{phase}] expected {seconds} s")
+
+
+def phase_dryrun_host(torch, card: str):
+    """The dry run on the card's host: ``gemma-7b`` ``train_4k`` on the
+    16x16 production mesh over a fake 256-rank group, on meta tensors,
+    through ``run_cell`` (which writes its record under ``dryrun_torch/``):
+    the record's roofline terms, per-device bytes and collective census;
+    FLOPs, argument bytes and collectives above zero, and the argument
+    bytes (the DTensors' local shards) equal to the shards the rules give,
+    reckoned from the shapes and the mesh's sizes alone."""
+    import types
+
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.models import build_model
+
+    _expect("dryrun host", "10-60")
+    t0 = time.perf_counter()
+    rec = dr.run_cell(DRYRUN_ARCH, "train_4k", "single", force=True)
+    wall = time.perf_counter() - t0
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 shape=(16, 16))
+    model = build_model(dr.get_config(DRYRUN_ARCH), "meta")
+    args, specs = dr.cell_args(model, SHAPES["train_4k"],
+                               dr.cell_rules(mesh, "train_4k"))
+    by_rules = dr.shard_bytes(args, specs, mesh)
+    check(rec["cost"]["flops_per_device"] > 0, "dry run: no FLOPs")
+    check(rec["memory"]["argument_bytes"] > 0, "dry run: no argument bytes")
+    check(rec["collectives"]["n_collectives"] > 0, "dry run: no collectives")
+    check(rec["memory"]["argument_bytes"] == by_rules,
+          f"dry run: argument bytes {rec['memory']['argument_bytes']} != "
+          f"{by_rules} by the rules' shards")
+    say(f"[dryrun host] {DRYRUN_ARCH} train_4k single (256 fake ranks, "
+        f"meta, not measured): {json.dumps(dict(rec, wall_s=wall))}")
+    say(f"[dryrun host] argument bytes by the rules' shards: {by_rules}; "
+        f"host of the card {card}")
+    return rec
+
+
+def _placed(tree, specs, mesh):
+    """Each tensor of ``tree`` as a DTensor on the 1x1 ``mesh`` holding it
+    whole (no copy: on one rank the local tensor is the tensor)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.sharding import placements
+    from repro_torch.tree import map_tree_with_path
+
+    return map_tree_with_path(
+        lambda _, t, s: DTensor.from_local(t, mesh, placements(s, mesh),
+                                           run_check=False), tree, specs)
+
+
+def _library_ms(torch, fn, iters: int, warmup: int = 5):
+    """``time_ms`` of a library call, or why it could not run (None and a
+    line saying so: the yardstick is optional, the port never calls it)."""
+    try:
+        return time_ms(torch, fn, iters, warmup)
+    except RuntimeError as e:
+        say(f"[dryrun card] library call failed: {str(e)[:200]}")
+        return None
+
+
+def _local_bytes(tree) -> int:
+    return sum(t.to_local().numel() * t.element_size() for t in _leaves(tree))
+
+
+def phase_dryrun_card(torch, np, card: str):
+    """``gemma-7b`` at full size on ``make_host_mesh()`` (1x1, this card):
+    each cell of ``DRYRUN_CARD_CELLS`` traced on meta over the same mesh
+    and rules, then run on the card with the parameters, batch and cache
+    as DTensors under the rules.  Prints the predicted and measured
+    argument bytes (checked equal), peak (their ratio) and time (the
+    roofline's max(t_compute, t_memory) against the step); checks that
+    every attention call launched its kernel (prefill on the tensor-core
+    route) and that the last-token logits under the rules are bit-equal to
+    the same model's without them.  Then times B4 and B5 alone at the
+    cells' shapes (head dim 256, 32,768 keys) beside their bounds and
+    PyTorch's ``scaled_dot_product_attention``."""
+    import dataclasses
+    import gc
+
+    import torch.nn.functional as F
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.sharding import sharding_rules, tree_pspecs
+
+    _expect("dryrun card", "20-90")
+    cfg = get_config(DRYRUN_ARCH)
+    mesh = make_host_mesh()
+    check(tuple(mesh.shape) == (1, 1), f"host mesh {mesh}")
+    say(f"[dryrun card] {DRYRUN_ARCH} at full size on {mesh}; cuts: "
+        + ", ".join(f"{n} global batch {SHAPES[n].global_batch} -> {b}"
+                    for n, b in DRYRUN_CARD_CELLS)
+        + "; train_4k not run: 8.54 B parameters with fp32 AdamW moments "
+        "exceed one card's 80 GB (the model is not cut)")
+    model = build_model(cfg, "cuda")
+    params = model.init(0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(29)
+    n_attn = cfg.n_layers
+    out = {}
+    counts = {}
+    for name, batch in DRYRUN_CARD_CELLS:
+        shape = dataclasses.replace(SHAPES[name], global_batch=batch)
+        rules = dr.cell_rules(mesh, name)
+        pred = dr.trace_cell(cfg, shape, mesh, rules)
+        rec = dr.cell_record(DRYRUN_ARCH, shape, "host", 1, cfg, pred)
+        roof = rec["roofline"]
+        pred_ms = max(roof["t_compute_s"], roof["t_memory_s"]) * 1e3
+        dparams = _placed(params, tree_pspecs(params, rules), mesh)
+        B, S = shape.global_batch, shape.seq_len
+        ledger = fa.DISPATCHES if shape.kind == "prefill" else dec.DISPATCHES
+        fa.ROUTE_LAUNCHES.update(tc=0, simt=0)
+        ledger.reset()
+        if shape.kind == "prefill":
+            tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                   device="cuda", dtype=torch.int32)
+            batch_ = {"tokens": tokens}
+            dbatch = _placed(batch_, dr.batch_pspecs(batch_, rules), mesh)
+            measured_args = _local_bytes(dparams) + _local_bytes(dbatch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with sharding_rules(rules), implicit_replication():
+                logits, cache = model.prefill_step(dparams, dbatch, max_len=S)
+                logits = logits.full_tensor()
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            del cache
+            gc.collect()
+            t0 = time.perf_counter()
+            plain, cache = model.prefill_step(params, batch_, max_len=S)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            del cache
+            want_launches = 2 * n_attn
+            check(fa.ROUTE_LAUNCHES == {"tc": want_launches, "simt": 0},
+                  f"{name}: flash launches by route {fa.ROUTE_LAUNCHES}")
+        else:
+            cache = model.init_cache(B, S)
+            for t in _leaves(cache):
+                t.normal_(generator=gen)
+            tokens = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                                   device="cuda", dtype=torch.int32)
+            lens = torch.full((B,), S - 1, dtype=torch.int32, device="cuda")
+            batch_ = {"tokens": tokens, "cache_len": lens}
+            dbatch = _placed(batch_, dr.batch_pspecs(batch_, rules), mesh)
+            dcache = _placed(cache, dr.cache_pspecs(cache, rules), mesh)
+            measured_args = (_local_bytes(dparams) + _local_bytes(dcache)
+                             + _local_bytes(dbatch))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(DRYRUN_DECODE_STEPS):
+                t0 = time.perf_counter()
+                with sharding_rules(rules), implicit_replication():
+                    logits, _ = model.decode_step(dparams, dcache,
+                                                  dbatch["tokens"],
+                                                  dbatch["cache_len"])
+                    logits = logits.full_tensor()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated()
+            step_ms = min(times)
+            # the same step without rules on the same tensors: it writes
+            # the same slot with the same values and reads the same cache
+            t0 = time.perf_counter()
+            plain, _ = model.decode_step(params, cache, tokens, lens)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            del cache, dcache
+            want_launches = (DRYRUN_DECODE_STEPS + 1) * n_attn
+        counts[name] = ledger.snapshot()
+        c = counts[name]
+        check(c.launches == c.kernel_launches == want_launches,
+              f"{name}: attention launches {vars(c)}, want {want_launches} "
+              "all on the kernel")
+        check(bool(torch.isfinite(logits.float()).all()),
+              f"{name}: a logit is not finite")
+        check(torch.equal(logits, plain),
+              f"{name}: logits under the rules differ from the plain run's "
+              f"(max abs {float((logits.float() - plain.float()).abs().max())})")
+        check(measured_args == pred["argument_bytes"],
+              f"{name}: measured argument bytes {measured_args} != predicted "
+              f"{pred['argument_bytes']}")
+        res = dict(cell=name, global_batch=B, seq_len=S,
+                   predicted_argument_bytes=pred["argument_bytes"],
+                   measured_argument_bytes=measured_args,
+                   predicted_peak_bytes=pred["peak_bytes"],
+                   measured_peak_bytes=peak,
+                   peak_ratio=peak / pred["peak_bytes"],
+                   roofline_ms=pred_ms, t_compute_ms=roof["t_compute_s"] * 1e3,
+                   t_memory_ms=roof["t_memory_s"] * 1e3,
+                   step_ms=step_ms, plain_step_ms=plain_ms,
+                   step_over_roofline=step_ms / pred_ms,
+                   trace_s=pred["seconds"], kernel_calls=vars(c),
+                   logits_bit_equal=True, card=card)
+        if shape.kind == "decode":
+            res["step_ms_all"] = times
+        say(f"[dryrun card] {DRYRUN_ARCH} {name}: {json.dumps(res)}")
+        out[name] = res
+        del dparams, dbatch
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # B4 and B5 alone at the cells' shapes: head dim 256, 32,768 keys
+    H, D, S = cfg.n_heads, cfg.head_dim, SHAPES["prefill_32k"].seq_len
+    q = torch.randn((1, H, S, D), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    k, v = torch.randn_like(q), torch.randn_like(q)
+    ops, nbytes = fa.flash_work(q, k, True, None)
+    bound_ms, bound_by = _bound(nbytes, ops, "bfloat16")
+    flash_ms = time_ms(torch, lambda: fa.flash_attention(q, k, v), 3, 1)
+    sdpa_ms = _library_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), 3, 1)
+    # the last 256 queries against all 32,768 keys: the plain version's
+    # scores fit there ([16, 256, 32768] fp32)
+    tail = q[:, :, -256:].contiguous()
+    got, want = fa.flash_attention(tail, k, v), fa.attention_ref(tail, k, v)
+    err = float((got.float() - want.float()).abs().max())
+    check(_allclose(got, want, ATTN_TOL["flash_attention"]["bfloat16"]),
+          f"flash_attention at D 256, S {S}: max abs err {err}")
+    out["flash_d256"] = dict(shape=f"B=1,Hq={H},Hkv={H},T={S},S={S},D={D},"
+                             "causal,bf16", ms=flash_ms, library_ms=sdpa_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             plain_ms="not measured (its [16, 32768, 32768] "
+                             "fp32 scores are 68.7 GB)",
+                             tail_256_queries_max_abs_err=err)
+    del q, k, v
+    B = DRYRUN_CARD_CELLS[1][1]
+    q = torch.randn((B, H, D), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    k = torch.randn((B, H, S, D), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    v = torch.randn_like(k)
+    lens = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    ops, nbytes = dec.decode_work(q, k, B * S)
+    bound_ms, bound_by = _bound(nbytes, ops, "bfloat16")
+    dec_ms = time_ms(torch, lambda: dec.decode_attention(q, k, v, lens), 20)
+    plain_ms = time_ms(torch, lambda: dec.decode_attention_ref(q, k, v, lens),
+                       3, 1)
+    sdpa_ms = _library_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k, v), 20)
+    got = dec.decode_attention(q, k, v, lens)
+    want = dec.decode_attention_ref(q, k, v, lens)
+    err = float((got.float() - want.float()).abs().max())
+    check(_allclose(got, want, ATTN_TOL["decode_attention"]["bfloat16"]),
+          f"decode_attention at D 256, S {S}: max abs err {err}")
+    out["decode_d256"] = dict(shape=f"B={B},Hq={H},Hkv={H},S={S},D={D},bf16",
+                              ms=dec_ms, plain_ms=plain_ms,
+                              library_ms=sdpa_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, max_abs_err=err)
+    say(f"[dryrun card] B4/B5 at D 256 on {card}: "
+        f"{json.dumps({k: out[k] for k in ('flash_d256', 'decode_d256')})}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    flash = counts[DRYRUN_CARD_CELLS[0][0]]
+    decode = counts[DRYRUN_CARD_CELLS[1][0]]
+    return flash, decode, out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -3573,7 +3838,7 @@ def main() -> int:
         return out
 
     try:
-        run(phase_device, torch)
+        card = run(phase_device, torch)
         run(phase_build)
         kres = run(phase_kernels, torch, np)
         ares = run(phase_attention_kernels, torch)
@@ -3613,6 +3878,10 @@ def main() -> int:
         flash[train_key], bwd[train_key] = run(phase_whisper_train, torch,
                                                np)
         run(phase_whisper_parity, torch, np)
+        run(phase_dryrun_host, torch, card)
+        (flash[f"{DRYRUN_ARCH} prefill_32k"],
+         decode[f"{DRYRUN_ARCH} decode_32k"], _) = run(phase_dryrun_card,
+                                                        torch, np, card)
         leaked = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m == "repro" or m.startswith("repro."))

@@ -22,14 +22,23 @@ tallies the backward calls likewise; one call is three kernel launches
 (delta, dK / dV, dQ) and counts once, and :data:`BWD_ROUTE_LAUNCHES`
 splits the launched calls by the backward's route
 (:func:`.kernel.flash_bwd_route`).
+
+On a ``meta`` tensor (the dry run) nothing is computed: the wrapper
+allocates its outputs on ``meta`` and adds the kernel's FLOPs and bytes
+(:func:`flash_work`) to :data:`~repro_torch.kernels.ledger.DRYRUN`.  A
+:class:`~torch.distributed.tensor.DTensor` reaches the kernel through
+``local_map`` (:func:`repro_torch.models.sharding.attention_map`): q by
+``("batch", "heads")``, k and v by ``("batch", "kv_heads")`` under the
+installed rules, each rank running the kernel on its shard.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from ..ledger import DispatchStats
+from ..ledger import DRYRUN, DispatchStats
 from .kernel import (DTYPE_CODES, ROUTES, flash_attention_bwd_cuda,
                      flash_attention_cuda, flash_bwd_route, flash_route)
 from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
@@ -77,8 +86,46 @@ def check_attention_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
                 raise ValueError(f"{name}: {nm} must be 16-byte aligned")
         if max(q.numel(), k.numel()) >= 2**31:
             raise ValueError(f"{name}: sizes must fit int32 indexing")
+    elif q.device.type == "meta":
+        # what the kernel takes, checked on the shapes the card would see
+        if D % 8 != 0 or not 8 <= D <= 256:
+            raise ValueError(
+                f"{name}: the CUDA kernel takes head dims 8..256 in steps of "
+                f"8, got {D}")
+        if max(q.numel(), k.numel()) >= 2**31:
+            raise ValueError(f"{name}: sizes must fit int32 indexing")
     elif q.device.type != "cpu":
         raise ValueError(f"{name}: no kernel for device {q.device}")
+
+
+def visible_pairs(T: int, S: int, window: Optional[int],
+                  causal: bool = True) -> int:
+    """(query, key) pairs a prefill computes, T queries at the tail of S
+    keys."""
+    if not causal and window is None:
+        return T * S
+    qpos = torch.arange(T, dtype=torch.int64) + (S - T)
+    hi = torch.clamp(qpos + 1, max=S) if causal else torch.full_like(qpos, S)
+    lo = (torch.clamp(qpos - window + 1, min=0) if window
+          else torch.zeros_like(qpos))
+    return int(torch.clamp(hi - lo, min=0).sum())
+
+
+def flash_work(q: torch.Tensor, k: torch.Tensor, causal: bool,
+               window: Optional[int], *, bwd: bool = False,
+               with_lse: bool = False):
+    """(FLOPs, bytes) of one launch: the forward's two products of the
+    visible pairs and q, k, v read and o written once (and the lse); the
+    backward's five products, q, k, v, o, dO and lse read and dq, dk, dv
+    written once."""
+    B, Hq, T, D = q.shape
+    pairs = visible_pairs(T, k.shape[2], window, causal)
+    esize = q.element_size()
+    if bwd:
+        return (10 * D * pairs * Hq * B,
+                (4 * q.numel() + 4 * k.numel()) * esize + 4 * B * Hq * T)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * esize
+    return 4 * D * pairs * Hq * B, nbytes + (4 * B * Hq * T if with_lse else 0)
 
 
 def flash_attention(
@@ -93,6 +140,12 @@ def flash_attention(
     """Attention of T queries at the tail of an S-long context."""
     if q.dim() != 4:
         raise ValueError("flash_attention: q must be [B, Hq, T, D]")
+    if isinstance(q, DTensor):
+        from ...models.sharding import attention_map
+        return attention_map(
+            lambda ql, kl, vl: flash_attention(ql, kl, vl, causal=causal,
+                                               window=window, scale=scale),
+            q, k, v)
     check_attention_inputs("flash_attention", q, k, v, window)
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -118,6 +171,9 @@ def _forward(q, k, v, causal: bool, window: Optional[int], scale: float,
         return out, lse
     lse = (torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    if q.device.type == "meta":
+        DRYRUN.add(*flash_work(q, k, causal, window, with_lse=with_lse))
+        return torch.empty_like(q), lse
     out = flash_attention_cuda(q, k, v, causal=causal, window=window,
                                scale=float(scale), lse=lse)
     DISPATCHES.kernel_launches += 1
@@ -153,6 +209,9 @@ def flash_attention_bwd(
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, dout, lse, causal=causal,
                                  window=window, scale=scale)
+    if q.device.type == "meta":
+        DRYRUN.add(*flash_work(q, k, causal, window, bwd=True))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     grads = flash_attention_bwd_cuda(q, k, v, o, dout, lse, causal=causal,
                                      window=window, scale=float(scale))
     BWD_DISPATCHES.kernel_launches += 1

@@ -30,3 +30,29 @@ class DispatchStats:
     def reset(self) -> None:
         for k in vars(self):
             setattr(self, k, 0)
+
+
+@dataclass
+class WorkTally:
+    """The work the wrappers were handed on ``meta`` tensors (the dry run,
+    :mod:`repro_torch.launch.dryrun`): a meta tensor launches nothing and
+    no FLOP counter sees a ctypes launch, so each wrapper adds its
+    kernel's FLOPs and bytes here (its ``*_work`` function, the same one
+    ``chip_smoke.py`` bounds the kernel with)."""
+
+    calls: int = 0
+    flops: int = 0
+    bytes: int = 0
+
+    def add(self, flops: int, nbytes: int) -> None:
+        self.calls += 1
+        self.flops += int(flops)
+        self.bytes += int(nbytes)
+
+    def reset(self) -> None:
+        for k in vars(self):
+            setattr(self, k, 0)
+
+
+# one tally for every wrapper: the dry run resets it before a step
+DRYRUN = WorkTally()

@@ -27,14 +27,24 @@ up to three kernel launches (the carry across segments, the gradient and
 the sums of its partials) and counts once.  ``mamba_step`` (one decode
 token) has no kernel in either package: it is plain PyTorch on every
 device.
+
+On a ``meta`` tensor (the dry run) nothing is computed: the wrapper
+allocates its outputs (the train variant's edges too) and adds the
+kernels' FLOPs and bytes (:func:`scan_work`) to
+:data:`~repro_torch.kernels.ledger.DRYRUN`.  A DTensor reaches the kernel
+through ``local_map`` (:func:`repro_torch.models.sharding.local_kernel`):
+x, delta and D by ``"batch"`` and ``"ff"`` (channels), A by ``"ff"``, B
+and C by ``"batch"``, each rank scanning its rows and channels over the
+whole sequence.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from ..ledger import DispatchStats
+from ..ledger import DRYRUN, DispatchStats
 from .kernel import (MAX_BATCH, MAX_STATE, edges_shape, mamba_scan_bwd_cuda,
                      mamba_scan_cuda)
 from .ref import mamba_scan_bwd_ref, mamba_scan_ref, mamba_step_ref
@@ -43,6 +53,32 @@ DISPATCHES = DispatchStats()
 BWD_DISPATCHES = DispatchStats()
 INPUT_DTYPES = (torch.float32, torch.bfloat16)
 DTYPE_LAUNCHES = {"float32": 0, "bfloat16": 0}
+
+
+def scan_work(x: torch.Tensor, N: int, *, bwd: bool = False,
+              edges: int = 0):
+    """(FLOPs, bytes) of one forward or backward call at x ``[B, T, D]``
+    with N states and ``edges`` fp32 edge states written or read.
+    Forward: per state element and step delta*A, exp, a*h, (dx)*B, +, *C,
+    sum, per channel and step delta*x, x*D, +; x, delta read and y written
+    once and B, C read in x's type, A, D read and h_T written in fp32.
+    Backward, an FMA counted as two: per state element and step delta*A,
+    exp, the state's recompute (delta x B and an FMA), g (dy C and an
+    FMA), a_t h_{t-1} and g times it, the dB and dC terms and their adds
+    over channels, and the FMAs of the dx, ddelta and dA sums (10 + 5
+    FMAs); per channel and step delta*x, the dx sum's scaling, ddelta's
+    FMA, D*dy and its add, dD's FMA (4 + 2 FMAs); x, delta, dy read and
+    dx, ddelta written, B, C read and dB, dC written, A, D read and dA, dD
+    written."""
+    B, T, D = x.shape
+    esize = x.element_size()
+    if bwd:
+        return (B * T * D * (20 * N + 8),
+                esize * (5 * B * T * D + 4 * B * T * N)
+                + 4 * (2 * D * N + 2 * D) + 4 * edges)
+    return (B * T * D * (7 * N + 3),
+            esize * (3 * B * T * D + 2 * B * T * N)
+            + 4 * (D * N + D + B * D * N) + 4 * edges)
 
 
 def check_scan_inputs(name: str, x, delta, A, Bm, Cm, D) -> None:
@@ -78,7 +114,7 @@ def check_scan_inputs(name: str, x, delta, A, Bm, Cm, D) -> None:
         raise ValueError(f"{name}: D must be [{Dm}], got {tuple(D.shape)}")
     if T < 1 or N < 1:
         raise ValueError(f"{name}: needs T >= 1 and N >= 1, got T={T}, N={N}")
-    if x.device.type == "cuda":
+    if x.device.type in ("cuda", "meta"):
         if N > MAX_STATE:
             raise ValueError(
                 f"{name}: the CUDA kernel takes N <= {MAX_STATE}, got {N}")
@@ -87,6 +123,19 @@ def check_scan_inputs(name: str, x, delta, A, Bm, Cm, D) -> None:
                 f"{name}: the CUDA kernel takes B <= {MAX_BATCH}, got {Bsz}")
     elif x.device.type != "cpu":
         raise ValueError(f"{name}: no kernel for device {x.device}")
+
+
+def _sharded(fn, x, delta, A, Bm, Cm, D):
+    """``fn`` over each rank's rows and channels of DTensor inputs."""
+    from ...models.sharding import local_kernel
+
+    row, ch = ("batch", None, "ff"), ("batch", None, None)
+    Bsz, _, Dm = x.shape
+    return local_kernel(
+        fn, (x, delta, A, Bm, Cm, D),
+        (row, row, ("ff", None), ch, ch, ("ff",)),
+        ((tuple(x.shape), row), ((Bsz, Dm, A.shape[1]), ("batch", "ff", None))),
+        split_by=0)
 
 
 def mamba_scan(
@@ -98,6 +147,8 @@ def mamba_scan(
     D: torch.Tensor,      # [D]        fp32
 ) -> Tuple[torch.Tensor, torch.Tensor]:  # y [B, T, D], h_T [B, D, N] fp32
     """Selective scan from a zero state: ``y`` and the final state."""
+    if isinstance(x, DTensor):
+        return _sharded(mamba_scan, x, delta, A, Bm, Cm, D)
     check_scan_inputs("mamba_scan", x, delta, A, Bm, Cm, D)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, delta, A, Bm, Cm, D)):
@@ -114,6 +165,13 @@ def _forward(x, delta, A, Bm, Cm, D, *, with_edges: bool):
     DISPATCHES.rows += Bsz * Dm
     if x.device.type == "cpu":
         return (*mamba_scan_ref(x, delta, A, Bm, Cm, D), None)
+    if x.device.type == "meta":
+        N = A.shape[1]
+        edges = (x.new_empty(edges_shape(Bsz, x.shape[1], Dm, N),
+                             dtype=torch.float32) if with_edges else None)
+        DRYRUN.add(*scan_work(x, N, edges=edges.numel() if with_edges else 0))
+        return (torch.empty_like(x), x.new_empty((Bsz, Dm, N),
+                                                 dtype=torch.float32), edges)
     out = mamba_scan_cuda(x, delta, A, Bm, Cm, D, with_edges=with_edges)
     DISPATCHES.kernel_launches += 1
     DTYPE_LAUNCHES[str(x.dtype).removeprefix("torch.")] += 1
@@ -143,6 +201,10 @@ def mamba_scan_bwd(
     if x.device.type == "cpu":
         return mamba_scan_bwd_ref(x, delta, A, Bm, Cm, D, dy)
     want = edges_shape(Bsz, T, Dm, A.shape[1])
+    if x.device.type == "meta":
+        DRYRUN.add(*scan_work(x, A.shape[1], bwd=True,
+                              edges=edges.numel() if edges is not None else 0))
+        return tuple(torch.empty_like(t) for t in (x, delta, A, Bm, Cm, D))
     if edges is None or tuple(edges.shape) != want \
             or edges.dtype != torch.float32 or edges.device != x.device \
             or not edges.is_contiguous():

@@ -3,8 +3,8 @@ assembly.
 
 PyTorch port of :mod:`repro.models`: the serve path and training
 (``loss_fn`` / ``grad_step`` / ``train_step``) of the dense, MoE, SSM,
-hybrid (Mamba beside attention) and encoder-decoder architectures.  Not
-yet ported: ``sharding``.
+hybrid (Mamba beside attention) and encoder-decoder architectures, and
+``sharding``: the logical-axis rules that place them on a DeviceMesh.
 """
 from .model import Model, TrainState, build_model
 

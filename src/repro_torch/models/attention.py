@@ -23,6 +23,11 @@ the prefill kernel, as the JAX package calls it (``mode="train"``).
 Products follow JAX's type promotion (:func:`~.layers.mm`): an fp32
 encoder output against bf16 weights gives fp32 K and V, which reach the
 kernel in q's type, as the jnp reference casts them.
+
+Under sharding rules with DTensor parameters and activations, q and the
+block's output are constrained as in the JAX package, the kernels take
+each rank's shard (:func:`~.sharding.attention_map`), and decode writes
+the new token into each rank's own cache shard (:func:`_write_slot`).
 """
 from __future__ import annotations
 
@@ -30,21 +35,23 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 
 from ..configs.base import ModelConfig
 from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import flash_attention
 from .layers import dense_init, mm, rope
+from .sharding import constrain, is_dtensor, merge_last, roll, split_last
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig,
-                   dtype: torch.dtype) -> Dict:
+                   dtype: torch.dtype, device=None) -> Dict:
     d, h, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     return {
-        "wq": dense_init(gen, d, h * dh, dtype),
-        "wk": dense_init(gen, d, hk * dh, dtype),
-        "wv": dense_init(gen, d, hk * dh, dtype),
-        "wo": dense_init(gen, h * dh, d, dtype),
+        "wq": dense_init(gen, d, h * dh, dtype, device),
+        "wk": dense_init(gen, d, hk * dh, dtype, device),
+        "wv": dense_init(gen, d, hk * dh, dtype, device),
+        "wo": dense_init(gen, h * dh, d, dtype, device),
     }
 
 
@@ -86,6 +93,33 @@ def init_cache(cfg: ModelConfig, batch: int, length: int, *, window: bool,
     return c
 
 
+def _write_slot(buf, val: torch.Tensor, slot: torch.Tensor) -> None:
+    """``buf[b, :, slot[b], :] = val[b]`` for a DTensor cache ``[B, Hkv,
+    S, Dh]``, in place on each rank's shard: ``val`` ``[B, Hkv, Dh]`` and
+    ``slot`` ``[B]`` are placed as the cache's batch and head dims; where
+    the slots are sharded, a rank whose range misses a row's slot writes
+    that row's own value back."""
+    mesh = buf.device_mesh
+    bl = buf.to_local()
+    v_pl = tuple(p if p in (Shard(0), Shard(1)) else
+                 Shard(2) if p == Shard(3) else Replicate()
+                 for p in buf.placements)
+    s_pl = tuple(p if p == Shard(0) else Replicate() for p in buf.placements)
+    vl = val.redistribute(mesh, v_pl).to_local()
+    sl = slot.redistribute(mesh, s_pl).to_local()
+    lo = 0
+    for j, p in enumerate(buf.placements):
+        if p == Shard(2):
+            lo = lo * mesh.size(j) + mesh.get_local_rank(j)
+    lo *= bl.shape[2]
+    loc = sl - lo
+    inside = (loc >= 0) & (loc < bl.shape[2])
+    loc = torch.clamp(loc, 0, bl.shape[2] - 1)
+    rows = torch.arange(bl.shape[0], device=bl.device)
+    bl[rows, :, loc, :] = torch.where(inside[:, None, None], vl,
+                                      bl[rows, :, loc, :])
+
+
 def _ring(x: torch.Tensor, T: int, keep: int, size: int,
           rolled: bool) -> torch.Tensor:
     """The last ``keep`` of T positions padded to ``size`` slots; rolled so
@@ -94,7 +128,7 @@ def _ring(x: torch.Tensor, T: int, keep: int, size: int,
     if size > keep:
         xc = F.pad(xc, (0, 0, 0, size - keep))
     if rolled:
-        xc = torch.roll(xc, (T - keep) % size, dims=2)
+        xc = roll(xc, (T - keep) % size, 2)
     return xc.contiguous()
 
 
@@ -117,20 +151,20 @@ def attention_forward(
     h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
 
-    q = mm(x, p["wq"]).reshape(B, T, h, dh)
+    q = split_last(mm(x, p["wq"]), h, dh)
     if kv_override is None:
-        k = mm(x, p["wk"]).reshape(B, T, hk, dh)
-        v = mm(x, p["wv"]).reshape(B, T, hk, dh)
+        k = split_last(mm(x, p["wk"]), hk, dh)
+        v = split_last(mm(x, p["wv"]), hk, dh)
         if cfg.pos_embedding == "rope":
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
     else:
         enc = kv_override[0]  # [B, S_enc, D]
-        S_enc = enc.shape[1]
-        k = mm(enc, p["wk"]).reshape(B, S_enc, hk, dh)
-        v = mm(enc, p["wv"]).reshape(B, S_enc, hk, dh)
+        k = split_last(mm(enc, p["wk"]), hk, dh)
+        v = split_last(mm(enc, p["wv"]), hk, dh)
         causal, window = False, None
     q = q.transpose(1, 2)  # [B, H, T, Dh]
+    q = constrain(q, "batch", "heads", None, None)
 
     new_cache = None
     if mode == "decode" and kv_override is None:
@@ -149,11 +183,14 @@ def attention_forward(
         kq, ks = quantize_kv(k1, cfg.kv_cache_dtype)
         vq, vs = quantize_kv(v1, cfg.kv_cache_dtype)
         # in place: row b's slot of every kv head
-        cache["k"][rows, :, slot, :] = kq[:, :, 0, :]
-        cache["v"][rows, :, slot, :] = vq[:, :, 0, :]
+        writes = [("k", kq), ("v", vq)]
         if cfg.kv_cache_dtype == "int8":
-            cache["k_scale"][rows, :, slot, :] = ks[:, :, 0, :]
-            cache["v_scale"][rows, :, slot, :] = vs[:, :, 0, :]
+            writes += [("k_scale", ks), ("v_scale", vs)]
+        for name, val in writes:
+            if is_dtensor(cache[name]):
+                _write_slot(cache[name], val[:, :, 0, :], slot)
+            else:
+                cache[name][rows, :, slot, :] = val[:, :, 0, :]
         new_cache = cache
 
         k_full = dequantize_kv(cache["k"], cache.get("k_scale"), dt)
@@ -184,5 +221,5 @@ def attention_forward(
                 new_cache["k_scale"] = ks
                 new_cache["v_scale"] = vs
 
-    out = out.transpose(1, 2).reshape(B, T, h * dh)
-    return mm(out, p["wo"]), new_cache
+    out = merge_last(out.transpose(1, 2))          # [B, T, h * dh]
+    return constrain(mm(out, p["wo"]), "batch", "seq", "embed"), new_cache

@@ -5,9 +5,12 @@ dicts of tensors, the other functions are pure.  Norm and softmax
 statistics accumulate in fp32 whatever the compute dtype.
 
 Initialisers draw from an explicit :class:`torch.Generator`, one tensor at
-a time, on the generator's device and directly in the model dtype: at
+a time, on ``device`` and directly in the model dtype: at
 gemma3-27b's width, drawing the model in fp32 and casting it would need
-twice the card's memory.  A generator gives other numbers than
+twice the card's memory.  ``device`` is the generator's own, except on
+``meta`` (the dry run's shapes-only init), where PyTorch has no generator
+("META device type not an accelerator") and a CPU one stands in: a meta
+tensor draws nothing from it.  A generator gives other numbers than
 ``jax.random`` from the same seed; :func:`repro_torch.interop.params_from_jax`
 carries the JAX package's weights across when two runs must agree.
 """
@@ -20,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from .sharding import rows_whole, rows_whole_grad
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -30,18 +34,23 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 
 # ------------------------------------------------------------------- inits
+def init_device(gen: torch.Generator, device=None) -> torch.device:
+    """Where an initialiser draws: ``device``, else the generator's."""
+    return gen.device if device is None else torch.device(device)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
-               dtype: torch.dtype) -> torch.Tensor:
+               dtype: torch.dtype, device=None) -> torch.Tensor:
     """``[d_in, d_out]`` (the JAX layout: ``x @ w``), N(0, 1/d_in)."""
-    w = torch.randn((d_in, d_out), generator=gen, device=gen.device,
-                    dtype=dtype)
+    w = torch.randn((d_in, d_out), generator=gen,
+                    device=init_device(gen, device), dtype=dtype)
     return w.mul_(1.0 / math.sqrt(d_in))
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,
-               dtype: torch.dtype) -> torch.Tensor:
-    return torch.randn((vocab, d), generator=gen, device=gen.device,
-                       dtype=dtype)
+               dtype: torch.dtype, device=None) -> torch.Tensor:
+    return torch.randn((vocab, d), generator=gen,
+                       device=init_device(gen, device), dtype=dtype)
 
 
 def init_rmsnorm(d: int, dtype: torch.dtype, device) -> dict:
@@ -53,11 +62,13 @@ def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` in the type JAX promotes the pair to, where PyTorch would
     refuse mixed types: fp32 activations against bf16 weights compute in
     fp32 (a bf16 encoder-decoder fed fp32 frames runs its encoder, and its
-    cross-attention's K and V, in fp32, as the JAX package does)."""
+    cross-attention's K and V, in fp32, as the JAX package does).  A
+    DTensor ``x`` comes with its rows whole (:func:`.sharding.rows_whole`)."""
+    x = rows_whole(x)
     if x.dtype != w.dtype:
         dt = torch.promote_types(x.dtype, w.dtype)
-        return x.to(dt) @ w.to(dt)
-    return x @ w
+        return rows_whole_grad(x.to(dt) @ w.to(dt))
+    return rows_whole_grad(x @ w)
 
 
 def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

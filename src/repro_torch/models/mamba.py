@@ -30,28 +30,29 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels.mamba_scan import mamba_scan, mamba_step
-from .layers import dense_init
+from .layers import dense_init, init_device, mm
+from .sharding import constrain, reduced
 
 
 def init_mamba(gen: torch.Generator, cfg: ModelConfig,
-               dtype: torch.dtype) -> Dict:
-    """Random parameters on ``gen.device``; ``A_log`` and ``Dp`` are fp32
-    whatever the model dtype."""
+               dtype: torch.dtype, dev=None) -> Dict:
+    """Random parameters on ``dev`` (the generator's device unless given);
+    ``A_log`` and ``Dp`` are fp32 whatever the model dtype."""
     d, di, n, r, kw = (cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank,
                        cfg.ssm_conv)
-    dev = gen.device
+    dev = init_device(gen, dev)
     A = torch.arange(1, n + 1, dtype=torch.float32, device=dev)[None, :]
     return {
-        "in_proj": dense_init(gen, d, 2 * di, dtype),
+        "in_proj": dense_init(gen, d, 2 * di, dtype, dev),
         "conv_w": torch.randn((kw, di), generator=gen, device=dev,
                               dtype=dtype).mul_(1.0 / math.sqrt(kw)),
         "conv_b": torch.zeros((di,), dtype=dtype, device=dev),
-        "x_proj": dense_init(gen, di, r + 2 * n, dtype),
-        "dt_w": dense_init(gen, r, di, dtype),
+        "x_proj": dense_init(gen, di, r + 2 * n, dtype, dev),
+        "dt_w": dense_init(gen, r, di, dtype, dev),
         "dt_b": torch.full((di,), -4.6, dtype=dtype, device=dev),  # softplus^-1(0.01)
         "A_log": torch.log(A.repeat(di, 1)),                       # fp32
         "Dp": torch.ones((di,), dtype=torch.float32, device=dev),
-        "out_proj": dense_init(gen, di, d, dtype),
+        "out_proj": dense_init(gen, di, d, dtype, dev),
     }
 
 
@@ -82,9 +83,11 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def _ssm_inputs(p: Dict, cfg: ModelConfig, u: torch.Tensor):
     """(delta, Bm, Cm, A) of the post-conv activations ``u``."""
     r, n = cfg.dt_rank, cfg.ssm_state
-    bcd = u @ p["x_proj"]                             # [B, T, r+2n]
+    # the contraction runs over the channels "ff" shards: its partial sums
+    # are reduced before the bias, sharded over "ff", is added to them
+    bcd = reduced(mm(u, p["x_proj"]))                 # [B, T, r+2n]
     dt_in, Bm, Cm = torch.split(bcd, [r, n, n], dim=-1)
-    delta = F.softplus(dt_in @ p["dt_w"] + p["dt_b"])
+    delta = F.softplus(mm(dt_in, p["dt_w"]) + p["dt_b"])
     A = -torch.exp(p["A_log"])
     return delta, Bm, Cm, A
 
@@ -101,7 +104,8 @@ def mamba_forward(
     B, T, _ = x.shape
     dt = x.dtype
 
-    xz = x @ p["in_proj"]                             # [B, T, 2Di]
+    xz = mm(x, p["in_proj"])                          # [B, T, 2Di]
+    xz = constrain(xz, "batch", "seq", "ff")
     xi, z = torch.chunk(xz, 2, dim=-1)
     conv_w, conv_b = p["conv_w"].to(dt), p["conv_b"].to(dt)
 
@@ -139,4 +143,4 @@ def mamba_forward(
                          "h": hT}
 
     y = y * F.silu(z)
-    return y @ p["out_proj"], new_cache
+    return constrain(mm(y, p["out_proj"]), "batch", "seq", "embed"), new_cache

@@ -29,6 +29,7 @@ from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
 from ..train.optimizer import AdamWConfig, adamw_update, init_opt_state
 from ..tree import leaves, map_tree
+from .sharding import constrain, is_dtensor, local_kernel, local_rows
 from .transformer import forward, init_decode_cache, init_params, lm_logits
 
 CE_CHUNK = 512
@@ -40,11 +41,27 @@ class TrainState(NamedTuple):
     step: torch.Tensor            # int32, 0-d
 
 
+def _gold(logits: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``logits[b, i, t[b, i]]``; for DTensors, on each rank's rows (the
+    gather has no DTensor strategy but replication: its backward would
+    zero a whole-batch ``[B, chunk, vocab]`` on every rank)."""
+    if is_dtensor(logits):
+        lg = ("batch", "ce_seq", None)
+        return local_kernel(_gold, (logits, t), (lg, lg[:2]),
+                            ((tuple(t.shape), lg[:2]),))
+    return torch.gather(logits, -1, t[..., None])[..., 0]
+
+
 def _chunk_loss(params, cfg: ModelConfig, h: torch.Tensor, t: torch.Tensor,
                 m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    # shard the chunk's sequence dim over the model axis so the
+    # [B, chunk, V] logits are distributed even where the vocab does not
+    # divide the mesh (granite's and whisper's vocabs)
+    h = constrain(h, "batch", "ce_seq", "embed")
     logits = lm_logits(params, cfg, h).float()
+    logits = constrain(logits, "batch", "ce_seq", None)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, t.long()[..., None])[..., 0]
+    gold = _gold(logits, t.long())
     return ((logz - gold) * m).sum(), m.sum()
 
 
@@ -73,14 +90,24 @@ def cross_entropy(params, cfg: ModelConfig, hidden: torch.Tensor,
     return total / torch.clamp(cnt, min=1.0)
 
 
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient in its parameter's placements (the data-parallel
+    reduction: a partial sum reduced, scattered to the parameter's
+    shards); a plain one as it is."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def _split(batch: Dict[str, torch.Tensor], mbs: int):
     for name, leaf in batch.items():
         if leaf.shape[0] % mbs != 0:
             raise ValueError(
                 f"batch {leaf.shape[0]} ({name}) not divisible by {mbs} "
                 "microbatches")
-    return [{name: leaf.reshape((mbs, leaf.shape[0] // mbs)
-                                + tuple(leaf.shape[1:]))[i]
+    return [{name: local_rows(leaf, mbs, i) if is_dtensor(leaf) else
+             leaf.reshape((mbs, leaf.shape[0] // mbs)
+                          + tuple(leaf.shape[1:]))[i]
              for name, leaf in batch.items()} for i in range(mbs)]
 
 
@@ -92,11 +119,14 @@ class Model:
 
     # ------------------------------------------------------------------ init
     def init(self, seed: int = 0) -> Dict:
-        """Random parameters on the model's device, from ``seed``."""
-        gen = torch.Generator(device=self.device)
+        """Random parameters on the model's device, from ``seed``; on
+        ``meta``, their shapes and types only (a CPU generator stands in:
+        PyTorch has none for ``meta``)."""
+        meta = self.device.type == "meta"
+        gen = torch.Generator(device="cpu" if meta else self.device)
         gen.manual_seed(seed)
         with torch.no_grad():
-            return init_params(gen, self.cfg)
+            return init_params(gen, self.cfg, self.device)
 
     def init_train_state(self, seed: int = 0) -> TrainState:
         params = self.init(seed)
@@ -128,7 +158,7 @@ class Model:
             loss = self.loss_fn(live, batch)
             flat = leaves(live)
             grads = torch.autograd.grad(loss, flat, allow_unused=True)
-        it = iter([g if g is not None else torch.zeros_like(p)
+        it = iter([_placed_like(g, p) if g is not None else torch.zeros_like(p)
                    for p, g in zip(flat, grads)])
         return loss.detach(), map_tree(lambda _: next(it), live)
 
@@ -139,8 +169,7 @@ class Model:
             loss, grads = self.grad_step(state.params, batch)
         else:
             # gradient accumulation over microbatches, fp32 accumulators
-            gsum = map_tree(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                  device=p.device),
+            gsum = map_tree(lambda p: torch.zeros_like(p, dtype=torch.float32),
                             state.params)
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=self.device)

@@ -44,10 +44,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import attention_forward, init_attention, init_cache
-from .layers import (dense_init, dtype_of, embed_init, init_rmsnorm,
-                     learned_positions, rmsnorm, softcap)
+from .layers import (dense_init, dtype_of, embed_init, init_device,
+                     init_rmsnorm, learned_positions, mm, rmsnorm, softcap)
 from .mamba import init_mamba, init_mamba_cache, mamba_forward
 from .mlp import dense_ffn, init_dense_ffn, init_moe_ffn, moe_ffn
+from .sharding import constrain
 
 
 def layer_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
@@ -66,45 +67,51 @@ def _plan(cfg: ModelConfig) -> Tuple[int, int, int]:
 
 # ---------------------------------------------------------------------- init
 def init_layer(gen: torch.Generator, cfg: ModelConfig, mixer: str, ffn: str,
-               dtype: torch.dtype, cross: bool = False) -> Dict:
-    dev = gen.device
+               dtype: torch.dtype, dev=None, cross: bool = False) -> Dict:
+    dev = init_device(gen, dev)
     p: Dict[str, Any] = {"norm1": init_rmsnorm(cfg.d_model, dtype, dev)}
     if mixer == "mamba":
-        p["mamba"] = init_mamba(gen, cfg, dtype)
+        p["mamba"] = init_mamba(gen, cfg, dtype, dev)
     else:
-        p["attn"] = init_attention(gen, cfg, dtype)
+        p["attn"] = init_attention(gen, cfg, dtype, dev)
     if cross:
         p["norm_cross"] = init_rmsnorm(cfg.d_model, dtype, dev)
-        p["cross"] = init_attention(gen, cfg, dtype)
+        p["cross"] = init_attention(gen, cfg, dtype, dev)
     if ffn != "none":
         p["norm2"] = init_rmsnorm(cfg.d_model, dtype, dev)
-        p["ffn"] = (init_moe_ffn(gen, cfg, dtype) if ffn == "moe"
-                    else init_dense_ffn(gen, cfg, dtype))
+        p["ffn"] = (init_moe_ffn(gen, cfg, dtype, dev) if ffn == "moe"
+                    else init_dense_ffn(gen, cfg, dtype, dev))
     return p
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
-    """Random parameters on ``gen.device``, drawn tensor by tensor."""
+def init_params(gen: torch.Generator, cfg: ModelConfig, dev=None) -> Dict:
+    """Random parameters on ``dev`` (the generator's device unless given),
+    drawn tensor by tensor from ``gen`` (see :mod:`.layers` for
+    ``meta``)."""
     dtype = dtype_of(cfg)
+    dev = init_device(gen, dev)
     kinds = layer_kinds(cfg)
-    dev = gen.device
     params: Dict[str, Any] = {
-        "embed": {"tok": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype)},
+        "embed": {"tok": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype,
+                                    dev)},
         "final_norm": init_rmsnorm(cfg.d_model, dtype, dev),
     }
     if cfg.pos_embedding == "learned":
         length = cfg.decoder_positions or 2048
-        params["embed"]["pos"] = embed_init(gen, length, cfg.d_model, dtype)
+        params["embed"]["pos"] = embed_init(gen, length, cfg.d_model, dtype,
+                                            dev)
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype)
-    params["layers"] = [init_layer(gen, cfg, mixer, ffn, dtype,
+        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype,
+                                       dev)
+    params["layers"] = [init_layer(gen, cfg, mixer, ffn, dtype, dev,
                                    cross=cfg.is_encoder_decoder)
                         for mixer, ffn in kinds]
     if cfg.is_encoder_decoder:
         params["encoder"] = {
-            "layers": [init_layer(gen, cfg, "attn", "dense", dtype)
+            "layers": [init_layer(gen, cfg, "attn", "dense", dtype, dev)
                        for _ in range(cfg.n_encoder_layers)],
-            "pos": embed_init(gen, cfg.encoder_positions, cfg.d_model, dtype),
+            "pos": embed_init(gen, cfg.encoder_positions, cfg.d_model, dtype,
+                              dev),
             "final_norm": init_rmsnorm(cfg.d_model, dtype, dev),
         }
     return params
@@ -279,6 +286,7 @@ def forward(
         positions = torch.arange(T, device=tokens.device)[None].expand(B, T)
     if cfg.pos_embedding == "learned":
         x = x + learned_positions(params["embed"]["pos"], positions).to(dtype)
+    x = constrain(x, "batch", "seq", "embed")
 
     enc_out = None
     if cfg.is_encoder_decoder:
@@ -309,7 +317,7 @@ def forward(
     if return_hidden:
         out = x
     else:
-        out = lm_logits(params, cfg, x)
+        out = constrain(lm_logits(params, cfg, x), "batch", "seq", "vocab")
 
     new_cache = None
     if mode == "decode":
@@ -324,7 +332,7 @@ def forward(
 def lm_logits(params: Dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     """Vocabulary logits of hidden states ``h`` (tied or untied head)."""
     if cfg.tie_embeddings:
-        logits = h @ params["embed"]["tok"].t()
+        logits = mm(h, params["embed"]["tok"].t())
     else:
-        logits = h @ params["lm_head"]
+        logits = mm(h, params["lm_head"])
     return softcap(logits, cfg.logit_softcap)

@@ -14,7 +14,7 @@ updates the parameters and moments **in place**, leaf by leaf: the values
 are the same, and at ``minitron-4b``'s width (fp32 moments, a 786 M-element
 tied embedding whose fp32 temporaries are 3.1 GB each) a second copy of
 the state would not fit the card beside the first.  ``opt_state_pspecs``
-(sharding) comes with the port of ``models/sharding.py``.
+gives the state's sharding specs (:mod:`~repro_torch.models.sharding`).
 """
 from __future__ import annotations
 
@@ -120,3 +120,24 @@ def adamw_update(
                             subtrees_up_to(params, opt_state["mu"])):
             _update_leaf(p, g, st, cfg, clip, b1c, b2c)
     return params, {"step": step, "mu": opt_state["mu"]}
+
+
+def opt_state_pspecs(opt_state, param_pspecs):
+    """Optimizer state shardings mirror parameter shardings: ``m`` (and
+    ``v``) take the parameter's spec, the factored ``v_row`` / ``v_col``
+    drop its last or second-to-last entry."""
+    from ..models.sharding import P
+
+    def leaf_spec(ps, st):
+        out = {"m": ps}
+        if "v" in st:
+            out["v"] = ps
+        else:
+            sub = list(ps) if ps else []
+            sub = sub + [None] * (st["m"].dim() - len(sub))
+            out["v_row"] = P(*sub[:-1]) if len(sub) > 1 else P()
+            out["v_col"] = P(*(sub[:-2] + sub[-1:])) if len(sub) > 1 else P()
+        return out
+
+    return {"step": P(), "mu": map_tree(leaf_spec, param_pspecs,
+                                        opt_state["mu"])}

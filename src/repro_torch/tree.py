@@ -57,9 +57,15 @@ def subtrees_up_to(tree, other) -> List[Any]:
 def map_tree(fn: Callable, tree, *rest):
     """A tree of ``tree``'s structure holding ``fn(leaf, *others)``, where
     ``others`` are the subtrees of ``rest`` at that leaf."""
+    return map_tree_with_path(lambda _, *leaf: fn(*leaf), tree, *rest)
+
+
+def map_tree_with_path(fn: Callable, tree, *rest, path: Path = ()):
+    """:func:`map_tree` with ``fn(path, leaf, *others)``: each leaf's key
+    path first, as ``jax.tree_util.tree_map_with_path`` passes it."""
     kids = _children(tree)
     if kids is None:
-        return fn(tree, *rest)
+        return fn(path, tree, *rest)
 
     def pick(other, key):
         if isinstance(key, str) and not isinstance(other, dict):
@@ -67,7 +73,8 @@ def map_tree(fn: Callable, tree, *rest):
         return other[key]
 
     # fn runs in the order of leaves(); a dict keeps its own key order
-    mapped = [map_tree(fn, child, *(pick(r, key) for r in rest))
+    mapped = [map_tree_with_path(fn, child, *(pick(r, key) for r in rest),
+                                 path=path + (key,))
               for key, child in kids]
     if isinstance(tree, dict):
         by_key = dict(zip((key for key, _ in kids), mapped))

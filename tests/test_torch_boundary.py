@@ -37,8 +37,10 @@ def test_import_loads_no_jax_and_no_repro():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
-        "print(len(sys.modules), bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        "import torch.distributed as dist\n"
+        "group = dist.is_available() and dist.is_initialized()\n"
+        "print(len(sys.modules), bad, group)\n"
+        "sys.exit(1 if bad or group else 0)\n")
     proc = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True,
         env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"},
@@ -79,7 +81,8 @@ def test_port_modules_found():
                 "tree", "train.data", "train.optimizer", "train.delta_sync",
                 "checkpoint.bigstore", "checkpoint.manager",
                 "cluster.membership", "runtime.elastic", "runtime.ft",
-                "launch.train"):
+                "launch.train", "configs.shapes", "models.sharding",
+                "launch.mesh", "launch.dryrun", "launch.hillclimb"):
         assert f"repro_torch.{mod}" in mods
     for name in ("flash_attention", "decode_attention", "mamba_scan",
                  "clock_ops"):
@@ -116,10 +119,12 @@ def test_clock_ops_import_loads_no_jax_and_builds_nothing(tmp_path):
     assert not build.exists()
 
 
-def test_port_configs_are_copies_without_shapes():
+def test_port_configs_carry_the_ported_shapes():
     import repro_torch.configs as cfgs
-    assert not hasattr(cfgs, "input_specs")
-    assert not (PORT / "configs" / "shapes.py").exists()
+    from repro_torch.configs import shapes
+    assert cfgs.input_specs is shapes.input_specs
+    assert set(cfgs.SHAPES) == {"train_4k", "prefill_32k", "decode_32k",
+                                "long_500k"}
     assert len(cfgs.ARCHS) == 10
 
 

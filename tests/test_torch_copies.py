@@ -30,6 +30,7 @@ COPIES = (
     "cluster/membership.py",
     "cluster/placement.py",
     "cluster/sim.py",
+    "configs/__init__.py",
     "configs/base.py",
     "configs/falcon_mamba_7b.py",
     "configs/gemma3_27b.py",
