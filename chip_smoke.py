@@ -25,7 +25,10 @@ Phases, each printed as it runs; any failure exits non-zero:
    at the model serve path's shapes (global and local layers: a window of
    1,024 in prefill, a ring of 1,024 slots in decode), the MoE serve
    paths' (16 over 8 heads of 64, 48 over 8 of 128), the hybrid's (64
-   over 8 of 128), the encoder-decoder's (6 heads of 64, not causal:
+   over 8 of 128), the dense family's last two (``pixtral-12b``'s 32 over
+   8 and ``mistral-large-123b``'s 96 over 8 of 128; the latter's decode
+   on the chunked grid, as the launcher reports the grid it launched),
+   the encoder-decoder's (6 heads of 64, not causal:
    a decode step's cross-attention, one query against 1,500 encoder
    positions, a training microbatch's cross-attention, 448 against 1,500,
    and its encoder, 1,500 against 1,500; decode at 448 slots) and a stress
@@ -66,19 +69,20 @@ Phases, each printed as it runs; any failure exits non-zero:
 7. cluster — the main path through a partitioned, durable, lossy
    cluster on ``cuda``: 8 vnodes on a ring of 64 partitions, factor 3, a
    network that drops, duplicates and reorders, WAL group commit of 8;
-   100,000 eight-byte elements with 16-byte values written over the wire
-   from rotating coordinators, 1,000 context-less removes, a seeded kill
+   50,000 eight-byte elements (cut from 100,000) with 16-byte values
+   written over the wire from rotating coordinators, 500 context-less
+   removes, a seeded kill
    point tearing ``v0``'s WAL mid-batch, its crash and replay (every
    write durable at the barrier before must survive), anti-entropy in
    whole sweeps until quiet, a ninth vnode joining with handoff until it
-   drains, anti-entropy again, 1,000 more removes and anti-entropy, then
+   drains, anti-entropy again, 500 more removes and anti-entropy, then
    a full Scan at page size 1,000 and r=2, a Count and a membership
    context round trip through the service, every answer held against a
    Python model; the
    ``dot_seen`` counts are zeroed just before and read just after, and
    the clock lattice runs on every partition's healed clocks;
-8. cluster parity — the same flow at 20,000 elements and 400 removes on
-   ``cpu`` and on ``cuda``: identical pages, network traffic,
+8. cluster parity — the same flow at 10,000 elements and 200 removes
+   (cut from 20,000 and 400) on ``cpu`` and on ``cuda``: identical pages, network traffic,
    anti-entropy ledger, ring state, recovery and handoff;
 9. model — the model serve path: the full 62-layer ``gemma3-27b`` in
    bf16 with random weights (seed 0) on ``cuda`` through ``ServeEngine``
@@ -122,10 +126,21 @@ Phases, each printed as it runs; any failure exits non-zero:
     launch checks count mixers: a flash launch an attention layer and
     prompt, a decode launch an attention layer and step, a scan launch (in
     bf16) a Mamba layer and prompt;
-16. MoE parity — the smoke ``granite-moe-1b-a400m`` and the smoke
+16. dense model — ``mistral-large-123b`` at full width (d_model 12,288,
+    96 over 8 heads of 128, d_ff 28,672, its int8 KV cache) with its depth
+    cut from 88 to 12 layers (34.8 GB of bf16 weights), after every
+    earlier model is freed, through the same engine and prompts: every
+    decode step reads the dequantised int8 cache through the decode
+    kernel on its chunked grid (a group of 12 query heads cut into two
+    blocks of 6); decode ms a step beside the floor of its weight reads;
+17. MoE parity — the smoke ``granite-moe-1b-a400m`` and the smoke
     ``grok-1-314b`` (fp32; grok's int8 cache kept) on ``cpu`` and on
     ``cuda``: identical greedy streams and logits within 1e-4;
-17. attention backward — the backward kernel (``flash_attention_bwd.cu``)
+18. dense parity — a narrow model at ``mistral-large-123b``'s head ratio
+    (24 query heads over 2, head dim 16, fp32, int8 cache) on ``cpu`` and
+    on ``cuda``: identical greedy streams and logits within 1e-4, every
+    cuda decode launch on the chunked grid;
+19. attention backward — the backward kernel (``flash_attention_bwd.cu``)
     against its plain version from the same forward output and
     log-sum-exps, and against autograd of the plain attention in fp32, at
     the training path's shape (24 over 8 heads, T = S = 4,096, D = 128,
@@ -133,8 +148,10 @@ Phases, each printed as it runs; any failure exits non-zero:
     D = 256, T = 63, the MoE training shape (16 over 8 heads, T = 4,096,
     D = 64), the encoder-decoder's training microbatch (64 rows, 6 heads
     of 64, not causal: cross-attention at 448 against 1,500 positions,
-    the encoder at 1,500) (bf16, all on the tensor-core route) and fp32 (the
-    SIMT route), each shape's route printed and counted (rtol 1e-4 /
+    the encoder at 1,500), the dense family's training shapes (32 and 96
+    over 8 heads, T = S = 4,096, in bf16 and in fp32) (bf16, all on the
+    tensor-core route) and fp32 (the SIMT route), each shape's route
+    printed and counted (rtol 1e-4 /
     atol 1e-5 in fp32; in bf16
     rtol 1.6e-2 / atol 1e-3 and 1e-3 in norm against the plain version,
     1e-2 in norm against autograd), with two calls bit-identical; at the
@@ -143,7 +160,7 @@ Phases, each printed as it runs; any failure exits non-zero:
     high) must fail both checks; device, wrapper, plain
     and SDPA backward ms beside the bound; then the forward at the serve
     shape of the attention phase with and without the log-sum-exp output;
-18. mamba backward — the scan's backward (``mamba_scan_bwd.cu``: a
+20. mamba backward — the scan's backward (``mamba_scan_bwd.cu``: a
     carry launch across T's segments, the gradient, the fixed-order sums)
     from the forward's train variant's edges (a state every 16 steps),
     against its plain version at the SSM training path's shape
@@ -159,7 +176,7 @@ Phases, each printed as it runs; any failure exits non-zero:
     as two), the floor of the exps, the plan's exps a state and step (its
     arithmetic, not a measurement), the resident warps an SM and the
     train variant's and serve launch's device ms;
-19. train — the training path: ``FTTrainer`` on the full 32-layer
+21. train — the training path: ``FTTrainer`` on the full 32-layer
     ``minitron-4b`` (bf16, fp32 AdamW moments, remat) with random weights
     (seed 0), two simulated hosts of one 4,096-token sequence each, 4
     steps (the global batch cut from ``train_4k``'s 256 to 2); the flash
@@ -169,37 +186,49 @@ Phases, each printed as it runs; any failure exits non-zero:
     ms, tokens/s and ``mfu`` over the two warm unprofiled steps (2 and 3)
     with their spread, peak memory, the last step's device busy share
     from ``torch.profiler``;
-20. MoE train — the same on the full ``granite-moe-1b-a400m`` (bf16, fp32
+22. MoE train — the same on the full ``granite-moe-1b-a400m`` (bf16, fp32
     AdamW moments, remat): ``mfu`` counts the parameters a token reaches
     (``ModelConfig.n_active_params``), checked against a count of the
     held leaves; the profiled step's device time by class (attention
     kernels, matmuls, the MoE dispatch: top-k, sort, searchsorted,
     scatters and gathers);
-21. SSM train — the same on ``falcon-mamba-7b`` at full width (d_model
+23. SSM train — the same on ``falcon-mamba-7b`` at full width (d_model
     4,096, d_inner 8,192, vocab 65,024, bf16, fp32 moments, remat) with its
     depth cut from 64 to ``SSM_TRAIN_LAYERS``: every scan forward (twice
     a layer under remat) and backward on the kernels, in bf16; the
     profiled step's device time by class (matmuls, scan forward, scan
     backward); then two deterministic ``grad_step``s of the model at full
     width and 2 layers, bit-equal;
-22. fault tolerance — at full width and 2 layers, ``test_ft.py``'s
+24. dense train — ``FTTrainer`` on ``mistral-large-123b`` at full width
+    (bf16, factored second moment, remat) with its depth cut from 88 to 4
+    layers, as the train phase: every attention forward and backward on
+    the kernels' tensor cores at a group of 12, the factored ``v_row`` /
+    ``v_col`` updated (finite, above 0 somewhere), the state's memory
+    reckoned before the first step beside the peak;
+25. vlm train — ``Model.train_step`` on ``pixtral-12b`` at full width
+    (bf16, fp32 moments, remat) with its depth cut from 40 to 10 layers, a
+    batch of 2 rows of 4,097 tokens, each with 256 seeded patch
+    embeddings, a warm-up step, two timed and one profiled: every
+    attention forward and backward on the kernels; step ms, ``mfu``, peak
+    memory beside the reckoned state, busy share;
+26. fault tolerance — at full width and 2 layers, ``test_ft.py``'s
     crash-restore flow at 4,096 tokens: train 2 steps, checkpoint, a
     checkpoint host crashes, a restarted fleet restores from the surviving
     replicas and trains 2 more, with losses equal to an uninterrupted
     4-step run's within rtol 1e-5; save and restore seconds, the store's
     bytes, peak RSS;
-23. train parity — one ``train_step`` of the smoke ``minitron-4b`` (fp32)
+27. train parity — one ``train_step`` of the smoke ``minitron-4b`` (fp32)
     from one state on ``cpu`` and on ``cuda``: loss within 1e-4,
     parameters within rtol 1e-4 / atol 1e-5;
-24. MoE train parity — the same for the smoke ``granite-moe-1b-a400m``,
+28. MoE train parity — the same for the smoke ``granite-moe-1b-a400m``,
     then two of its ``grad_step``s on ``cuda`` under the trainer's
     enforced deterministic algorithms, whose gradients must be bit-equal;
-25. hybrid parity — the smoke ``jamba-1.5-large-398b`` (fp32, int8 cache,
+29. hybrid parity — the smoke ``jamba-1.5-large-398b`` (fp32, int8 cache,
     one mixed group of 8 layers and one in the tail) served on ``cpu`` and
     on ``cuda``: identical greedy streams and logits within 1e-4; then
     ``train parity`` and two deterministic ``grad_step``s bit-equal, which
     run the scan's backward, attention's and the MoE dispatch's together;
-26. whisper serve — the full ``whisper-tiny`` (4 encoder and 4 decoder
+30. whisper serve — the full ``whisper-tiny`` (4 encoder and 4 decoder
     layers, d_model 384, 6 heads of 64) in bf16 with random weights
     through ``Model.prefill_step`` and ``decode_step``: 32 requests of a
     4-token prompt and 1,500 seeded bf16 frames, one prefill, 444 greedy
@@ -209,23 +238,23 @@ Phases, each printed as it runs; any failure exits non-zero:
     decode step), all on the tensor-core route, and the decode kernel a
     decoder layer and step; prefill ms split into encoder and decoder,
     decode ms a step beside the floor of its reads, peak memory;
-27. whisper train — ``Model.train_step`` on the full ``whisper-tiny``
+31. whisper train — ``Model.train_step`` on the full ``whisper-tiny``
     (bf16, fp32 moments, remat, 4 microbatches) at a global batch of 256
     rows of 449 tokens and 1,500 frames, a warm-up step, two timed and one
     profiled: every attention forward and backward on the kernels' tensor
     cores; step ms, decoder tokens/s, ``mfu`` with the encoder-decoder's
     terms, peak memory, busy share;
-28. whisper parity — the smoke ``whisper-tiny`` (fp32) on ``cpu`` and on
+32. whisper parity — the smoke ``whisper-tiny`` (fp32) on ``cpu`` and on
     ``cuda``: a prefill with frames and 12 greedy decode steps give
     identical tokens and logits within 1e-4; one ``train_step`` with
     frames as ``train parity``;
-29. dryrun host — the port's dry run (``repro_torch.launch.dryrun``) on
+33. dryrun host — the port's dry run (``repro_torch.launch.dryrun``) on
     this machine's host: ``gemma-7b`` ``train_4k`` on the 16x16 production
     mesh over a fake 256-rank group, on meta tensors (a prediction, not a
     measurement): the record's roofline terms, per-device bytes and
     collective census; FLOPs, argument bytes and collectives above zero,
     the argument bytes equal to the rules' local shard bytes;
-30. dryrun card — ``gemma-7b`` at full size (28 layers, bf16, random
+34. dryrun card — ``gemma-7b`` at full size (28 layers, bf16, random
     weights) on ``make_host_mesh()``, a 1x1 mesh on this card:
     ``prefill_32k`` at a global batch of 1 (cut from 32) and
     ``decode_32k`` at 2 (cut from 128; 3 steps at cache length 32,767),
@@ -235,20 +264,33 @@ Phases, each printed as it runs; any failure exits non-zero:
     ``max_memory_allocated``, the roofline's time beside the step's;
     logits bit-equal to the same model's without rules; every attention
     call on the kernels (prefill on the tensor-core route); then B4 and B5
-    alone at head dim 256 and 32,768 keys beside their bounds and SDPA.
-    Each of these two prints its expected seconds before it runs.
+    alone at head dim 256 and 32,768 keys beside their bounds and SDPA;
+35. vlm model — ``pixtral-12b`` at full size (40 layers, d_model 5,120,
+    32 over 8 heads of 128, 12.25 B parameters, bf16, random weights)
+    served through ``Model.prefill_step`` and ``decode_step``: 4 prompts
+    of 1,536 tokens, each with 256 seeded patch embeddings, and 16 greedy
+    decode steps, every attention call on the kernels; then its dry-run
+    cells as the dryrun card phase runs gemma-7b's: ``prefill_32k`` at a
+    global batch of 1 with its 256 patch embeddings (and, once more,
+    without them: other logits) and ``decode_32k`` at as many rows as fit
+    beside the weights (cut from 128).
 
-Each phase prints its seconds (``[time]``).  The line before the last is
+Each phase prints its seconds (``[time]``); the dry-run phases and the
+dense family's print their expected seconds before they run.  The line before the last is
 one JSON object with every kernel's numbers (the attention kernels' and
 the scan's launches summed over the serve and training paths, with each
 path's count beside; the encoder-decoder's as ``whisper-tiny serve`` and
 ``whisper-tiny train``, the dry-run cells' as ``gemma-7b prefill_32k`` and
-``gemma-7b decode_32k``); the last line is
+``gemma-7b decode_32k``, pixtral-12b's as ``pixtral-12b serve``,
+``pixtral-12b prefill_32k``, ``pixtral-12b decode_32k`` and
+``pixtral-12b train``, mistral-large-123b's as ``mistral-large-123b`` and
+``mistral-large-123b train``); the last line is
 ``{"ok": true, "device": {...}}``.  The script imports
 neither ``jax`` nor the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import re
@@ -581,7 +623,10 @@ def phase_kernels(torch, np):
 # encoder positions, not causal): a decode step's cross-attention (32 rows,
 # one query each), a training microbatch's cross-attention (64 rows of 448
 # decoder positions) and its encoder self-attention, and a decode step of
-# its 448-slot self-attention cache.
+# its 448-slot self-attention cache.  The dense family's last two:
+# pixtral-12b's 32 over 8 heads of 128 (a group of 4) and
+# mistral-large-123b's 96 over 8 (a group of 12, which the decode kernel
+# cuts into two chunks of 6 heads a block).
 FLASH_SHAPES = {
     "path": dict(B=1, Hq=32, Hkv=16, T=1536, S=1536, D=128, window=None,
                  causal=True),
@@ -593,6 +638,10 @@ FLASH_SHAPES = {
                       causal=True),
     "path-jamba": dict(B=1, Hq=64, Hkv=8, T=1536, S=1536, D=128,
                        window=None, causal=True),
+    "path-pixtral": dict(B=1, Hq=32, Hkv=8, T=1536, S=1536, D=128,
+                         window=None, causal=True),
+    "path-mistral": dict(B=1, Hq=96, Hkv=8, T=1536, S=1536, D=128,
+                         window=None, causal=True),
     "stress": dict(B=2, Hq=8, Hkv=8, T=777, S=1000, D=256, window=None,
                    causal=True),
     "cross-1": dict(B=32, Hq=6, Hkv=6, T=1, S=1500, D=64, window=None,
@@ -614,6 +663,10 @@ DECODE_SHAPES = {
                       lens=[1537, 1281, 9, 700]),
     "path-jamba": dict(B=4, Hq=64, Hkv=8, S=2048, D=128, window=None,
                        lens=[1537, 1281, 9, 700]),
+    "path-pixtral": dict(B=4, Hq=32, Hkv=8, S=2048, D=128, window=None,
+                         lens=[1537, 1281, 9, 700]),
+    "path-mistral": dict(B=4, Hq=96, Hkv=8, S=2048, D=128, window=None,
+                         lens=[1537, 1281, 9, 700]),
     "stress": dict(B=3, Hq=8, Hkv=8, S=4096, D=256, window=1000,
                    lens=[1, 2500, 4096]),
     # whisper-tiny's decoder: 32 rows of 448 slots, lengths 5..439
@@ -651,7 +704,8 @@ def _sdpa_ms(torch, q, k, v, mask, iters):
 def phase_attention_kernels(torch):
     """Both attention kernels against their plain versions, in bf16 and
     fp32, at the path's and the stress shapes; timings of the bf16 runs."""
-    from repro_torch.kernels.decode_attention import (decode_attention,
+    from repro_torch.kernels.decode_attention import (LAUNCHES,
+                                                      decode_attention,
                                                       decode_attention_cuda,
                                                       decode_attention_ref,
                                                       decode_work)
@@ -722,8 +776,20 @@ def phase_attention_kernels(torch):
             lens = torch.tensor(s["lens"], dtype=torch.int32, device="cuda")
             w = s["window"]
             scale = s["D"] ** -0.5
+            G = s["Hq"] // s["Hkv"]
+            n_chunks = -(-G // 8)
+            before = collections.Counter(LAUNCHES)
             got = decode_attention(q, k, v, lens, window=w)
             torch.cuda.synchronize()
+            # the grid the launcher reports: a group above 8 query heads
+            # (mistral-large-123b's 12) cut into ceil(G / 8) chunks
+            grid = LAUNCHES - before
+            check(len(grid) == 1 and sum(grid.values()) == 1
+                  and [(g.grid[1], g.chunk_heads, g.n_chunks) for g in grid]
+                  == [(s["Hkv"] * n_chunks, -(-G // n_chunks), n_chunks)],
+                  f"decode_attention {shape} {dname}: G = {G} launched "
+                  f"{dict(grid)}, not {n_chunks} chunk(s) a kv head")
+            grid = next(iter(grid))._asdict()
             want = decode_attention_ref(q, k, v, lens, window=w)
             err = float((got.float() - want.float()).abs().max())
             tol = ATTN_TOL["decode_attention"][dname]
@@ -736,7 +802,9 @@ def phase_attention_kernels(torch):
             res = dict(shape=f"B={s['B']},Hq={s['Hq']},Hkv={s['Hkv']},"
                        f"S={s['S']},D={s['D']},window={w},lens={s['lens']}",
                        dtype=dname, max_abs_err=err, bound_ms=bound_ms,
-                       bound_by=bound_by, ops=ops, bytes=nbytes)
+                       bound_by=bound_by, ops=ops, bytes=nbytes,
+                       launched=dict(grid, route="chunked" if n_chunks > 1
+                                     else "whole"))
             if dtype == torch.bfloat16:
                 iters = 50
                 res["ms"] = time_ms(torch, lambda: decode_attention(
@@ -1210,6 +1278,12 @@ CLUSTER_VALUE_BYTES = 16
 CLUSTER_QUIET_SWEEPS = 2
 CLUSTER_SWEEP_CAP = 40
 CLUSTER_HANDOFF_CAP = 200
+# elements and context-less removes of the cluster path on the card and of
+# its cpu / cuda parity run: cut from 100,000 / 2,000 and 20,000 / 400 to
+# keep the whole script near half of its time limit (the path's seconds
+# are host time and grow with the elements)
+CLUSTER_ELEMENTS, CLUSTER_REMOVES = 50_000, 1_000
+CLUSTER_PARITY_ELEMENTS, CLUSTER_PARITY_REMOVES = 10_000, 200
 
 
 def until_quiet(cluster, tag: str) -> dict:
@@ -1480,7 +1554,8 @@ def phase_cluster(torch):
 
     DISPATCHES.reset()
     t0 = time.perf_counter()
-    _, cluster = drive_cluster(torch, "cuda", 100_000, 2_000, timed=True)
+    _, cluster = drive_cluster(torch, "cuda", CLUSTER_ELEMENTS,
+                               CLUSTER_REMOVES, timed=True)
     torch.cuda.synchronize()
     launched = DISPATCHES.snapshot()
     say(f"[cluster] done in {time.perf_counter() - t0:.3f}s; dispatches "
@@ -1496,8 +1571,10 @@ def phase_cluster(torch):
 
 
 def phase_cluster_parity(torch):
-    cpu, _ = drive_cluster(torch, "cpu", 20_000, 400)
-    cuda, _ = drive_cluster(torch, "cuda", 20_000, 400)
+    cpu, _ = drive_cluster(torch, "cpu", CLUSTER_PARITY_ELEMENTS,
+                           CLUSTER_PARITY_REMOVES)
+    cuda, _ = drive_cluster(torch, "cuda", CLUSTER_PARITY_ELEMENTS,
+                            CLUSTER_PARITY_REMOVES)
     check(len(cpu["pages"]) == len(cuda["pages"]),
           "cpu and cuda page counts differ on the cluster path")
     for i, (a, b) in enumerate(zip(cpu["pages"], cuda["pages"])):
@@ -1510,7 +1587,8 @@ def phase_cluster_parity(torch):
         check(cpu[key] == cuda[key],
               f"cluster {key} differs between cpu and cuda: "
               f"{cpu[key]} != {cuda[key]}")
-    say(f"[cluster parity] cpu and cuda agree at 20000 elements: "
+    say(f"[cluster parity] cpu and cuda agree at "
+        f"{CLUSTER_PARITY_ELEMENTS} elements: "
         f"{len(cpu['pages'])} pages, bytes sent {cpu['net'][0]}, "
         f"anti-entropy {json.dumps(cpu['ae'])}, ring "
         f"{json.dumps(cpu['ring'])}")
@@ -1791,12 +1869,30 @@ def serve_attention_model(torch, np, arch: str, n_layers=None, during=None):
     ledgers = {"flash": fa.DISPATCHES, "decode": dec.DISPATCHES}
     if n_mamba:
         ledgers["mamba_scan"] = ms.DISPATCHES
+    grids = {}
+
+    @contextlib.contextmanager
+    def counting_grids():
+        # decode launches by grid over the serving loop alone
+        dec.LAUNCHES.clear()
+        with during if during is not None else contextlib.nullcontext():
+            yield
+        grids.update(dec.launches_by_group())
+
     cfg, n_reqs, steps, counts, by_route, stats = serve_full_model(
         torch, np, arch, ledgers, routes={"flash": fa.ROUTE_LAUNCHES,
                                           "mamba_scan": ms.DTYPE_LAUNCHES},
-        n_layers=n_layers, during=during)
+        n_layers=n_layers, during=counting_grids())
     flash, decode = counts["flash"], counts["decode"]
     routes = by_route["flash"]
+    # a group above 8 query heads a kv head is cut across blocks
+    group = "chunked" if cfg.n_heads // cfg.n_kv_heads > 8 else "whole"
+    stats["decode_grids"] = grids
+    say(f"[model {arch}] decode launches by grid: {json.dumps(grids)}")
+    check(grids == {"whole": 0, "chunked": 0, group: decode.launches},
+          f"decode_attention launches by grid {grids}: every "
+          f"{arch} decode step ({cfg.n_heads} over {cfg.n_kv_heads} heads) "
+          f"must launch the {group} grid")
     scans = counts.get("mamba_scan")
     dtypes = by_route["mamba_scan"]
     want = {"float32": 0, "bfloat16": scans.launches if scans else 0}
@@ -1865,16 +1961,19 @@ def _serve_smoke(np, cfg, params, device: str):
     return [r.out_tokens for r in reqs]
 
 
-def smoke_parity(torch, np, arch: str, ledgers, shrink_embed=False):
-    """The smoke ``arch`` in fp32, served on cpu and on cuda; every
-    dispatch of ``ledgers`` in the cuda run must launch the kernel."""
+def smoke_parity(torch, np, arch: str, ledgers, shrink_embed=False,
+                 cfg=None):
+    """The smoke ``arch`` (or ``cfg``) in fp32, served on cpu and on
+    cuda; every dispatch of ``ledgers`` in the cuda run must launch the
+    kernel."""
     from repro_torch.configs import smoke_config
     from repro_torch.models import build_model
 
     # fp32 products in full fp32 on the card (PyTorch's default, stated)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = smoke_config(arch)
+    smoke = smoke_config(arch)
+    cfg = cfg or smoke
     cpu_model = build_model(cfg, "cpu")
     params = cpu_model.init(0)
     if cfg.scale_embeddings or shrink_embed:
@@ -1901,7 +2000,8 @@ def smoke_parity(torch, np, arch: str, ledgers, shrink_embed=False):
         forced_logits(torch, np, cfg, gpu_params, "cuda"))]
     check(max(errs) <= 1e-4,
           f"{arch}: cpu and cuda logits differ by {max(errs)}")
-    say(f"[model parity] smoke {arch} fp32: identical greedy streams "
+    say(f"[model parity] {'smoke' if cfg is smoke else 'narrow'} {arch} "
+        f"fp32: identical greedy streams "
         f"for {len(cpu_streams)} requests ({varied} of them not a single "
         f"repeated token); prefill + 12 decode steps' logits within "
         f"{max(errs):.3g} of the cpu run")
@@ -2179,6 +2279,18 @@ BWD_SHAPES = {
                     causal=False, dtype="bfloat16"),
     "fp32": dict(B=1, Hq=24, Hkv=8, T=1024, S=1024, D=128, window=None,
                  causal=True, dtype="float32"),
+    # the dense family's training paths at one 4,096-token sequence:
+    # pixtral-12b's 32 over 8 heads (a group of 4) and mistral-large-123b's
+    # 96 over 8 (a group of 12: a dK / dV block runs 12 x 64 stages), each
+    # in bf16 and fp32
+    "pixtral": dict(B=1, Hq=32, Hkv=8, T=4096, S=4096, D=128, window=None,
+                    causal=True, dtype="bfloat16"),
+    "mistral": dict(B=1, Hq=96, Hkv=8, T=4096, S=4096, D=128, window=None,
+                    causal=True, dtype="bfloat16"),
+    "pixtral-fp32": dict(B=1, Hq=32, Hkv=8, T=4096, S=4096, D=128,
+                         window=None, causal=True, dtype="float32"),
+    "mistral-fp32": dict(B=1, Hq=96, Hkv=8, T=4096, S=4096, D=128,
+                         window=None, causal=True, dtype="float32"),
 }
 # B4''s tolerances by dtype and reference: (rtol, atol) elementwise or
 # None, and the largest ||g - ref|| / ||ref|| or None.  fp32 as the CPU
@@ -2256,6 +2368,33 @@ def _wrong_bwd(torch, fa, q, k, v, out, dout, lse, window, refs,
                   f"({case}) passes the check against the {against}: "
                   f"{read[case]}")
     return read
+
+
+def _exact_bwd(torch, q, k, v, dout, chunk: int = 512):
+    """(dq, dk, dv) of causal attention with T == S and no window,
+    computed in fp64 from the inputs, ``chunk`` query rows at a time: the
+    yardstick both fp32 backward routes are measured against."""
+    B, Hq, T, D = q.shape
+    G = Hq // k.shape[1]
+    q, k, v, do = (t.double() for t in (q, k, v, dout))
+    kk, vv = (torch.repeat_interleave(t, G, dim=1) for t in (k, v))
+    scale = D ** -0.5
+    dq, dk, dv = (torch.zeros_like(t) for t in (q, kk, vv))
+    for q0 in range(0, T, chunk):
+        q1 = min(T, q0 + chunk)
+        s = q[:, :, q0:q1] @ kk[:, :, :q1].transpose(-1, -2) * scale
+        later = (torch.arange(q1, device=q.device)[None, :]
+                 > torch.arange(q0, q1, device=q.device)[:, None])
+        p = torch.softmax(s.masked_fill(later, float("-inf")), dim=-1)
+        del s
+        delta = (do[:, :, q0:q1] * (p @ vv[:, :, :q1])).sum(-1, keepdim=True)
+        ds = p * (do[:, :, q0:q1] @ vv[:, :, :q1].transpose(-1, -2) - delta)
+        dq[:, :, q0:q1] = ds @ kk[:, :, :q1] * scale
+        dk[:, :, :q1] += ds.transpose(-1, -2) @ q[:, :, q0:q1] * scale
+        dv[:, :, :q1] += p.transpose(-1, -2) @ do[:, :, q0:q1]
+        del p, ds
+    return (dq, dk.view(B, -1, G, T, D).sum(2),
+            dv.view(B, -1, G, T, D).sum(2))
 
 
 def _sdpa_bwd_ms(torch, q, k, v, dout, window, iters, causal=True):
@@ -2347,6 +2486,20 @@ def phase_attention_bwd(torch, fwd_path_ms):
                                        window=w)
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               f"flash_attention backward {shape}: two calls differ")
+        fp64 = None
+        if s["dtype"] == "float32" and c and w is None and T == S:
+            # both fp32 routes against fp64: the kernel's sums over a
+            # key's G x T rows must land no further from it than twice
+            # the plain version's
+            fp64 = {}
+            for name, g, p, e in zip(("dq", "dk", "dv"), got, want,
+                                     _exact_bwd(torch, q, k, v, dout)):
+                fp64[name] = dict(
+                    kernel=float((g.double() - e).abs().max()),
+                    plain=float((p.double() - e).abs().max()))
+                check(fp64[name]["kernel"] <= 2 * fp64[name]["plain"],
+                      f"flash_attention backward {shape} {name}: "
+                      f"{fp64[name]} from fp64")
         wrong = (_wrong_bwd(torch, fa, q, k, v, out, dout, lse, w,
                             dict(plain=want, autograd=exact), s["dtype"])
                  if shape == "path" else None)
@@ -2374,6 +2527,8 @@ def phase_attention_bwd(torch, fwd_path_ms):
             q, k, v, out, dout, lse, causal=c, window=w), 2, warmup=1)
         res["library_ms"] = lib_ms
         res["library_rel_norm_err"] = lib_errs
+        if fp64 is not None:
+            res["max_abs_err_vs_fp64"] = fp64
         if wrong is not None:
             res["wrong_gradients_rejected"] = wrong
             # where the device time goes: ms a call by kernel
@@ -2722,6 +2877,34 @@ def _trace_busy(torch, fn, what: str):
     return sum(classes.values()), wall * 1e3, classes, top
 
 
+def timed_steps(torch, step, n: int, what: str):
+    """``n`` calls of ``step``, each timed on the host clock between two
+    synchronisations, the last one under ``_trace_busy``: (ms a step, the
+    trace or None)."""
+    step_ms, trace = [], None
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == n - 1:
+            trace = _trace_busy(torch, step, what)
+        else:
+            step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return step_ms, trace
+
+
+def trace_stats(trace) -> dict:
+    """A profiled step's device ms, wall ms, busy share, device ms by class
+    and top kernels, for a path's metrics (none when it was not traced)."""
+    if trace is None:
+        return {}
+    device_ms, wall_ms, classes, top = trace
+    return dict(traced_device_ms=device_ms, traced_wall_ms=wall_ms,
+                device_busy_share=device_ms / wall_ms,
+                device_ms_by_class=classes, top_kernels_ms=top)
+
+
 def _reached_params(cfg, params) -> int:
     """The held parameters a token reaches: all but the ``E - K`` experts
     of each MoE layer that it is not routed to."""
@@ -2739,14 +2922,14 @@ def _reached_params(cfg, params) -> int:
 def phase_train(torch, np):
     """The training path: ``FTTrainer`` on the full ``minitron-4b`` (32
     layers, d_model 3072, bf16, fp32 AdamW moments, remat)."""
-    return train_full_model(torch, np, TRAIN_ARCH)[:2]
+    return train_full_model(torch, np, TRAIN_ARCH)[1:3]
 
 
 def phase_moe_train(torch, np):
     """The MoE training path: ``FTTrainer`` on the full
     ``granite-moe-1b-a400m`` (24 layers, d_model 1024, 32 experts top 8,
     bf16, fp32 AdamW moments, remat)."""
-    return train_full_model(torch, np, MOE_ARCH)[:2]
+    return train_full_model(torch, np, MOE_ARCH)[1:3]
 
 
 # falcon-mamba-7b's depth cut from 64 layers for training: a layer holds
@@ -2776,7 +2959,7 @@ def phase_ssm_train(torch, np):
     from repro_torch.runtime.ft import deterministic
     from repro_torch.tree import leaves
 
-    stats, _, scan_fwd, scan_bwd = train_full_model(
+    _, _, _, scan_fwd, scan_bwd = train_full_model(
         torch, np, SSM_ARCH, n_layers=SSM_TRAIN_LAYERS)
     cfg = dataclasses.replace(get_config(SSM_ARCH), n_layers=2)
     model = build_model(cfg, "cuda")
@@ -2807,6 +2990,57 @@ def phase_ssm_train(torch, np):
     return scan_fwd, scan_bwd
 
 
+def reckon_train_state(cfg, params, grads: int):
+    """GB of a training step's state, reckoned before the first step from
+    the held leaves: bf16 parameters, the moments of
+    ``cfg.optimizer_moments`` (fp32 m and v; or bf16 m and fp32 row and
+    column means of v for a factored leaf, a whole fp32 v for the others),
+    ``grads`` bf16 gradient trees alive at once, and the fp32 temporaries
+    of one leaf's update (at most three copies of the largest leaf, which
+    ``adamw_update`` updates one at a time)."""
+    from repro_torch.train.optimizer import _factored
+    from repro_torch.tree import leaves
+
+    held = leaves(params)
+    n = sum(t.numel() for t in held)
+    if cfg.optimizer_moments == "factored":
+        moments = sum(2 * t.numel() + (4 * (t.numel() // t.shape[-1]
+                                            + t.numel() // t.shape[-2])
+                                       if _factored(t) else 4 * t.numel())
+                      for t in held)
+    else:
+        moments = (8 if cfg.optimizer_moments == "fp32" else 4) * n
+    out = dict(params_gb=2 * n / 1e9, moments_gb=moments / 1e9,
+               grads_gb=2 * grads * n / 1e9,
+               update_temporaries_gb=3 * 4 * max(t.numel() for t in held)
+               / 1e9)
+    out["total_gb_before_activations"] = sum(out.values())
+    return out
+
+
+def factored_moments(torch, params, opt) -> dict:
+    """The factored leaves' ``v_row`` / ``v_col`` after training: every
+    entry finite and at least 0, and each above 0 somewhere (a row of
+    the embedding whose token was never drawn keeps 0)."""
+    from repro_torch.tree import subtrees_up_to
+
+    mu = [st for st in subtrees_up_to(params, opt["mu"]) if "v_row" in st]
+    check(bool(mu), "no leaf holds factored moments")
+    for st in mu:
+        for name in ("v_row", "v_col"):
+            t = st[name]
+            check(t.dtype == torch.float32 and bool(torch.isfinite(t).all())
+                  and bool((t >= 0).all()) and bool((t > 0).any()),
+                  f"a factored {name} of shape {tuple(t.shape)} was not "
+                  "updated")
+    return dict(factored_leaves=len(mu),
+                v_row_entries=sum(st["v_row"].numel() for st in mu),
+                v_col_entries=sum(st["v_col"].numel() for st in mu),
+                v_row_nonzero_share=sum(int((st["v_row"] > 0).sum())
+                                        for st in mu)
+                / sum(st["v_row"].numel() for st in mu))
+
+
 def train_full_model(torch, np, arch: str, n_layers=None):
     """``FTTrainer`` on the full ``arch`` (its depth cut to ``n_layers``
     where given) with random weights from seed 0, two simulated hosts of
@@ -2815,8 +3049,8 @@ def train_full_model(torch, np, arch: str, n_layers=None):
     the kernels.  ``mfu`` counts the parameters a token reaches
     (``ModelConfig.n_active_params``: an MoE layer's routed experts only),
     held against a count of the held leaves.  Returns (the path's
-    metrics, the attention backward's counts, the scan's forward and
-    backward counts)."""
+    metrics, the attention forward's and backward's counts, the scan's
+    forward and backward counts)."""
     import dataclasses
     import gc
 
@@ -2849,11 +3083,7 @@ def train_full_model(torch, np, arch: str, n_layers=None):
     check(not cfg.n_experts or abs(reached - active) <= 1e-3 * active,
           f"{arch}: a token reaches {reached} held parameters, "
           f"ModelConfig.n_active_params() says {active}")
-    # reckoned before the first step: bf16 parameters, fp32 m and v, the
-    # running gradient sum and one host's fresh gradients (bf16 each)
-    reckoned = dict(params_gb=2 * n / 1e9, moments_gb=8 * n / 1e9,
-                    grad_sum_gb=2 * n / 1e9, fresh_grads_gb=2 * n / 1e9)
-    reckoned["total_gb_before_activations"] = sum(reckoned.values())
+    reckoned = reckon_train_state(cfg, tr.state.params, grads=2)
     mixers = (f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, "
               f"d_ff {cfg.d_ff} ({cfg.hidden_act})" if n_attn else
               f"{n_mamba} Mamba mixers of d_inner {cfg.d_inner}, state "
@@ -2871,22 +3101,15 @@ def train_full_model(torch, np, arch: str, n_layers=None):
 
     _reset_attention(fa)
     _reset_scan(ms)
-    step_ms, losses = [], []
-    trace = None
-    for i in range(TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if i == TRAIN_STEPS - 1:
-            trace = _trace_busy(torch, lambda: losses.extend(
-                tr.train_steps(1)), f"[train {arch}]")
-        else:
-            losses.extend(tr.train_steps(1))
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+    losses = []
+    step_ms, trace = timed_steps(torch, lambda: losses.extend(
+        tr.train_steps(1)), TRAIN_STEPS, f"[train {arch}]")
     fwd, bwd, routes, bwd_routes = _count_attention(fa)
     scan_fwd, scan_bwd = ms.DISPATCHES.snapshot(), ms.BWD_DISPATCHES.snapshot()
     scan_dtypes = dict(ms.DTYPE_LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    factored = (factored_moments(torch, tr.state.params, tr.state.opt)
+                if cfg.optimizer_moments == "factored" else None)
 
     check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
           f"{arch} training losses {losses}")
@@ -2933,17 +3156,14 @@ def train_full_model(torch, np, arch: str, n_layers=None):
         expected_forward=want_fwd, expected_backward=want_bwd,
         scan_forward=vars(scan_fwd), scan_backward=vars(scan_bwd),
         expected_scan_forward=want_scan_fwd,
-        expected_scan_backward=want_scan_bwd)
-    if trace is not None:
-        device_ms, wall_ms, classes, top = trace
-        stats.update(traced_device_ms=device_ms, traced_wall_ms=wall_ms,
-                     device_busy_share=device_ms / wall_ms,
-                     device_ms_by_class=classes, top_kernels_ms=top)
+        expected_scan_backward=want_scan_bwd, reckoned=reckoned,
+        **({"factored_moments": factored} if factored else {}))
+    stats.update(trace_stats(trace))
     say(f"[train {arch}] trained: {json.dumps(stats)}")
     del tr
     gc.collect()
     torch.cuda.empty_cache()
-    return stats, bwd, scan_fwd, scan_bwd
+    return stats, fwd, bwd, scan_fwd, scan_bwd
 
 
 def phase_ft(torch, np):
@@ -2954,8 +3174,9 @@ def phase_ft(torch, np):
     steps that saves no checkpoint (a save is some 20 s of host copies
     and reads the state only); then 2 steps (checkpoint at step 2),
     checkpoint host 1 crashes, a restarted fleet restores from the
-    surviving replicas and trains 2 more; the losses must equal the
-    uninterrupted run's within rtol 1e-5."""
+    surviving replicas and trains 2 more, saving nothing (no later step
+    reads a save); the losses must equal the uninterrupted run's within
+    rtol 1e-5."""
     import dataclasses
     import gc
 
@@ -2997,7 +3218,9 @@ def phase_ft(torch, np):
     del tr
     gc.collect()
     torch.cuda.empty_cache()
-    tr2 = timed_checkpoints(FTTrainer(cfg, ft, device="cuda"))
+    # the continuation saves nothing: no later step reads a save
+    tr2 = FTTrainer(cfg, dataclasses.replace(ft, ckpt_every=10**9),
+                    device="cuda")
     tr2.store = store
     t1 = time.perf_counter()
     step = tr2.restore()
@@ -3406,22 +3629,15 @@ def phase_whisper_train(torch, np):
         f"tokens and {S} frames; {state_gb:.3f} GB with the batch")
 
     _reset_attention(fa)
-    step_ms, losses, trace = [], [], None
+    losses = []
 
     def step():
         nonlocal state
         state, metrics = model.train_step(state, batch)
         losses.append(float(metrics["loss"]))
 
-    for i in range(WHISPER_TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if i == WHISPER_TRAIN_STEPS - 1:
-            trace = _trace_busy(torch, step, "[whisper train]")
-        else:
-            step()
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+    step_ms, trace = timed_steps(torch, step, WHISPER_TRAIN_STEPS,
+                                 "[whisper train]")
     fwd, bwd, routes, bwd_routes = _count_attention(fa)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -3460,11 +3676,7 @@ def phase_whisper_train(torch, np):
         state_gb=state_gb, peak_gb=peak_gb, flash_forward=vars(fwd),
         flash_backward=vars(bwd), expected_forward=want_fwd,
         expected_backward=want_bwd)
-    if trace is not None:
-        device_ms, wall_ms, classes, top = trace
-        stats.update(traced_device_ms=device_ms, traced_wall_ms=wall_ms,
-                     device_busy_share=device_ms / wall_ms,
-                     device_ms_by_class=classes, top_kernels_ms=top)
+    stats.update(trace_stats(trace))
     say(f"[whisper train] trained: {json.dumps(stats)}")
     del model, state, batch
     gc.collect()
@@ -3616,54 +3828,45 @@ def _local_bytes(tree) -> int:
     return sum(t.to_local().numel() * t.element_size() for t in _leaves(tree))
 
 
-def phase_dryrun_card(torch, np, card: str):
-    """``gemma-7b`` at full size on ``make_host_mesh()`` (1x1, this card):
-    each cell of ``DRYRUN_CARD_CELLS`` traced on meta over the same mesh
-    and rules, then run on the card with the parameters, batch and cache
-    as DTensors under the rules.  Prints the predicted and measured
-    argument bytes (checked equal), peak (their ratio) and time (the
-    roofline's max(t_compute, t_memory) against the step); checks that
-    every attention call launched its kernel (prefill on the tensor-core
-    route) and that the last-token logits under the rules are bit-equal to
-    the same model's without them.  Then times B4 and B5 alone at the
-    cells' shapes (head dim 256, 32,768 keys) beside their bounds and
-    PyTorch's ``scaled_dot_product_attention``."""
+def dryrun_cells(torch, card: str, arch: str, cells, model, params, gen):
+    """The dry-run ``cells`` ((shape name, global batch) pairs) of
+    ``arch``'s ``model`` and ``params`` on ``make_host_mesh()`` (1x1, this
+    card): each traced on meta over the same mesh and rules, then run on
+    the card with the parameters, batch (with ``gen``'s patch embeddings
+    for a vision frontend) and cache as DTensors under the rules.  Prints
+    the predicted and measured argument bytes (checked equal), peak (their
+    ratio) and time (the roofline's max(t_compute, t_memory) against the
+    step); checks that every attention call launched its kernel (prefill
+    on the tensor-core route) and that the last-token logits under the
+    rules are bit-equal to the same model's without them; for a vision
+    frontend, that a prefill without the patches gives other logits (the
+    splice took effect).  Returns (the records by cell, the attention
+    counts by cell)."""
     import dataclasses
     import gc
 
-    import torch.nn.functional as F
     from torch.distributed.tensor.experimental import implicit_replication
 
-    from repro_torch.configs import get_config
     from repro_torch.configs.shapes import SHAPES
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import dryrun as dr
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import build_model
+    from repro_torch.models.layers import DTYPES
     from repro_torch.models.sharding import sharding_rules, tree_pspecs
 
-    _expect("dryrun card", "20-90")
-    cfg = get_config(DRYRUN_ARCH)
+    cfg = model.cfg
     mesh = make_host_mesh()
     check(tuple(mesh.shape) == (1, 1), f"host mesh {mesh}")
-    say(f"[dryrun card] {DRYRUN_ARCH} at full size on {mesh}; cuts: "
-        + ", ".join(f"{n} global batch {SHAPES[n].global_batch} -> {b}"
-                    for n, b in DRYRUN_CARD_CELLS)
-        + "; train_4k not run: 8.54 B parameters with fp32 AdamW moments "
-        "exceed one card's 80 GB (the model is not cut)")
-    model = build_model(cfg, "cuda")
-    params = model.init(0)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(29)
-    n_attn = cfg.n_layers
+    n_attn = _mixers(cfg)[0]
+    vision = cfg.frontend == "vision"
     out = {}
     counts = {}
-    for name, batch in DRYRUN_CARD_CELLS:
+    for name, batch in cells:
         shape = dataclasses.replace(SHAPES[name], global_batch=batch)
         rules = dr.cell_rules(mesh, name)
         pred = dr.trace_cell(cfg, shape, mesh, rules)
-        rec = dr.cell_record(DRYRUN_ARCH, shape, "host", 1, cfg, pred)
+        rec = dr.cell_record(arch, shape, "host", 1, cfg, pred)
         roof = rec["roofline"]
         pred_ms = max(roof["t_compute_s"], roof["t_memory_s"]) * 1e3
         dparams = _placed(params, tree_pspecs(params, rules), mesh)
@@ -3671,10 +3874,15 @@ def phase_dryrun_card(torch, np, card: str):
         ledger = fa.DISPATCHES if shape.kind == "prefill" else dec.DISPATCHES
         fa.ROUTE_LAUNCHES.update(tc=0, simt=0)
         ledger.reset()
+        moved = None
         if shape.kind == "prefill":
             tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                                    device="cuda", dtype=torch.int32)
             batch_ = {"tokens": tokens}
+            if vision:
+                batch_["patch_embeds"] = torch.randn(
+                    (B, cfg.n_patches, cfg.d_model), generator=gen,
+                    device="cuda", dtype=DTYPES[cfg.dtype])
             dbatch = _placed(batch_, dr.batch_pspecs(batch_, rules), mesh)
             measured_args = _local_bytes(dparams) + _local_bytes(dbatch)
             torch.cuda.synchronize()
@@ -3693,7 +3901,17 @@ def phase_dryrun_card(torch, np, card: str):
             torch.cuda.synchronize()
             plain_ms = (time.perf_counter() - t0) * 1e3
             del cache
-            want_launches = 2 * n_attn
+            runs = 2
+            if vision:
+                bare, cache = model.prefill_step(params, {"tokens": tokens},
+                                                 max_len=S)
+                del cache
+                runs = 3
+                moved = float((bare.float() - plain.float()).abs().max())
+                check(not torch.equal(bare, plain),
+                      f"{arch} {name}: the logits without the patch "
+                      "embeddings equal those with them")
+            want_launches = runs * n_attn
             check(fa.ROUTE_LAUNCHES == {"tc": want_launches, "simt": 0},
                   f"{name}: flash launches by route {fa.ROUTE_LAUNCHES}")
         else:
@@ -3757,69 +3975,429 @@ def phase_dryrun_card(torch, np, card: str):
                    logits_bit_equal=True, card=card)
         if shape.kind == "decode":
             res["step_ms_all"] = times
-        say(f"[dryrun card] {DRYRUN_ARCH} {name}: {json.dumps(res)}")
+        if moved is not None:
+            res["patch_embeds"] = list(batch_["patch_embeds"].shape)
+            res["logits_moved_without_patches"] = moved
+        say(f"[dryrun card] {arch} {name}: {json.dumps(res)}")
         out[name] = res
         del dparams, dbatch
         gc.collect()
         torch.cuda.empty_cache()
-    del params, model
-    gc.collect()
-    torch.cuda.empty_cache()
+    return out, counts
 
-    # B4 and B5 alone at the cells' shapes: head dim 256, 32,768 keys
-    H, D, S = cfg.n_heads, cfg.head_dim, SHAPES["prefill_32k"].seq_len
-    q = torch.randn((1, H, S, D), generator=gen, device="cuda",
+
+def cell_kernels(torch, card: str, arch: str, cfg, rows: int, gen):
+    """B4 and B5 alone at ``arch``'s dry-run cells' shapes (``cfg``'s
+    heads and head dim, ``prefill_32k``'s 32,768 keys; ``decode_32k`` at
+    ``rows`` rows of 32,768 slots), each held against its plain version at
+    ``ATTN_TOL`` and timed beside its bound and PyTorch's
+    ``scaled_dot_product_attention``.  B4's plain version runs on the last
+    256 queries against all 32,768 keys (its scores for every query would
+    not fit).  Call with the model freed."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    S = SHAPES["prefill_32k"].seq_len
+    q = torch.randn((1, Hq, S, D), generator=gen, device="cuda",
                     dtype=torch.bfloat16)
-    k, v = torch.randn_like(q), torch.randn_like(q)
+    k = torch.randn((1, Hkv, S, D), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    v = torch.randn_like(k)
     ops, nbytes = fa.flash_work(q, k, True, None)
     bound_ms, bound_by = _bound(nbytes, ops, "bfloat16")
     flash_ms = time_ms(torch, lambda: fa.flash_attention(q, k, v), 3, 1)
     sdpa_ms = _library_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True), 3, 1)
-    # the last 256 queries against all 32,768 keys: the plain version's
-    # scores fit there ([16, 256, 32768] fp32)
+        q, k, v, is_causal=True, enable_gqa=True), 3, 1)
     tail = q[:, :, -256:].contiguous()
     got, want = fa.flash_attention(tail, k, v), fa.attention_ref(tail, k, v)
     err = float((got.float() - want.float()).abs().max())
     check(_allclose(got, want, ATTN_TOL["flash_attention"]["bfloat16"]),
-          f"flash_attention at D 256, S {S}: max abs err {err}")
-    out["flash_d256"] = dict(shape=f"B=1,Hq={H},Hkv={H},T={S},S={S},D={D},"
-                             "causal,bf16", ms=flash_ms, library_ms=sdpa_ms,
-                             bound_ms=bound_ms, bound_by=bound_by,
-                             plain_ms="not measured (its [16, 32768, 32768] "
-                             "fp32 scores are 68.7 GB)",
-                             tail_256_queries_max_abs_err=err)
-    del q, k, v
-    B = DRYRUN_CARD_CELLS[1][1]
-    q = torch.randn((B, H, D), generator=gen, device="cuda",
+          f"{arch} flash_attention at {Hq} over {Hkv} heads, D {D}, S {S}: "
+          f"max abs err {err}")
+    scores_gb = Hq * S * S * 4 / 1e9
+    out = {"flash": dict(
+        shape=f"B=1,Hq={Hq},Hkv={Hkv},T={S},S={S},D={D},causal,bf16",
+        ms=flash_ms, library_ms=sdpa_ms, bound_ms=bound_ms,
+        bound_by=bound_by,
+        plain_ms=f"not measured (its [{Hq}, {S}, {S}] fp32 scores are "
+                 f"{scores_gb:.1f} GB)",
+        tail_256_queries_max_abs_err=err)}
+    del q, k, v, tail, got, want
+    q = torch.randn((rows, Hq, D), generator=gen, device="cuda",
                     dtype=torch.bfloat16)
-    k = torch.randn((B, H, S, D), generator=gen, device="cuda",
+    k = torch.randn((rows, Hkv, S, D), generator=gen, device="cuda",
                     dtype=torch.bfloat16)
     v = torch.randn_like(k)
-    lens = torch.full((B,), S, dtype=torch.int32, device="cuda")
-    ops, nbytes = dec.decode_work(q, k, B * S)
+    lens = torch.full((rows,), S, dtype=torch.int32, device="cuda")
+    ops, nbytes = dec.decode_work(q, k, rows * S)
     bound_ms, bound_by = _bound(nbytes, ops, "bfloat16")
     dec_ms = time_ms(torch, lambda: dec.decode_attention(q, k, v, lens), 20)
     plain_ms = time_ms(torch, lambda: dec.decode_attention_ref(q, k, v, lens),
                        3, 1)
     sdpa_ms = _library_ms(torch, lambda: F.scaled_dot_product_attention(
-        q[:, :, None], k, v), 20)
+        q[:, :, None], k, v, enable_gqa=True), 20)
     got = dec.decode_attention(q, k, v, lens)
     want = dec.decode_attention_ref(q, k, v, lens)
     err = float((got.float() - want.float()).abs().max())
     check(_allclose(got, want, ATTN_TOL["decode_attention"]["bfloat16"]),
-          f"decode_attention at D 256, S {S}: max abs err {err}")
-    out["decode_d256"] = dict(shape=f"B={B},Hq={H},Hkv={H},S={S},D={D},bf16",
-                              ms=dec_ms, plain_ms=plain_ms,
-                              library_ms=sdpa_ms, bound_ms=bound_ms,
-                              bound_by=bound_by, max_abs_err=err)
-    say(f"[dryrun card] B4/B5 at D 256 on {card}: "
-        f"{json.dumps({k: out[k] for k in ('flash_d256', 'decode_d256')})}")
-    del q, k, v
+          f"{arch} decode_attention at {rows} x {Hq} over {Hkv} heads, "
+          f"D {D}, S {S}: max abs err {err}")
+    out["decode"] = dict(shape=f"B={rows},Hq={Hq},Hkv={Hkv},S={S},D={D},bf16",
+                         ms=dec_ms, plain_ms=plain_ms, library_ms=sdpa_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         max_abs_err=err)
+    say(f"[dryrun card] {arch} B4/B5 alone at the cells' shapes on {card}: "
+        f"{json.dumps(out)}")
+    del q, k, v, got, want
     torch.cuda.empty_cache()
+    return out
+
+
+def phase_dryrun_card(torch, np, card: str):
+    """``gemma-7b`` at full size: its ``DRYRUN_CARD_CELLS`` through
+    ``dryrun_cells`` on ``make_host_mesh()`` (1x1, this card); then B4 and
+    B5 alone at the cells' shapes (head dim 256, 32,768 keys) through
+    ``cell_kernels``."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.models import build_model
+
+    _expect("dryrun card", "20-90")
+    cfg = get_config(DRYRUN_ARCH)
+    say(f"[dryrun card] {DRYRUN_ARCH} at full size on the host mesh; cuts: "
+        + ", ".join(f"{n} global batch {SHAPES[n].global_batch} -> {b}"
+                    for n, b in DRYRUN_CARD_CELLS)
+        + "; train_4k not run: 8.54 B parameters with fp32 AdamW moments "
+        "exceed one card's 80 GB (the model is not cut)")
+    model = build_model(cfg, "cuda")
+    params = model.init(0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(29)
+    out, counts = dryrun_cells(torch, card, DRYRUN_ARCH, DRYRUN_CARD_CELLS,
+                               model, params, gen)
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out.update(cell_kernels(torch, card, DRYRUN_ARCH, cfg,
+                            DRYRUN_CARD_CELLS[1][1], gen))
     flash = counts[DRYRUN_CARD_CELLS[0][0]]
     decode = counts[DRYRUN_CARD_CELLS[1][0]]
     return flash, decode, out
+
+
+# ---------------------------------------------------- the dense family
+# pixtral-12b (the VLM backbone: 40 layers, d_model 5,120, 32 over 8 heads
+# of 128, 256 patch embeddings) at full size, and mistral-large-123b (88
+# layers, d_model 12,288, 96 over 8 heads of 128, int8 KV cache, factored
+# second moment) at full width with its depth cut.
+VLM_SERVE_ROWS, VLM_SERVE_PROMPT, VLM_SERVE_NEW = 4, 1536, 16
+# the cache a decode_32k row holds is 10.7 GB at pixtral's 40 layers: the
+# cell takes as many rows as fit beside the weights, less this margin for
+# the step's own tensors
+VLM_DECODE_MARGIN_GB = 6.0
+# pixtral-12b's depth cut from 40 for training: a layer holds 272.6 M
+# parameters and the untied embedding and head 1.34 B; bf16 parameters,
+# fp32 m and v and one bf16 gradient tree take 14 bytes a parameter, so 10
+# layers (4.07 B) reckon to ~57 GB before the update's fp32 temporaries
+# (three copies of the 131,072 x 5,120 embedding, 8.1 GB) and activations;
+# 12 layers would reckon to ~73 GB
+VLM_TRAIN_LAYERS = 10
+VLM_TRAIN_BATCH, VLM_TRAIN_SEQ, VLM_TRAIN_STEPS = 2, 4096, 4
+DENSE_ARCH = "mistral-large-123b"
+# mistral-large-123b's depth cut from 88 layers for serving: a layer holds
+# 1.384 B parameters (2.77 GB in bf16) and the untied embedding and head
+# 0.81 B, so 12 layers are 17.42 B, 34.8 GB
+MISTRAL_LAYERS = 12
+# and for training: bf16 parameters, m and two gradient trees (the
+# running sum and one host's fresh ones) take 8 bytes a parameter beside
+# the factored v's row and column means, so 4 layers (6.34 B) reckon to
+# ~51 GB before the update's fp32 temporaries (three copies of the
+# 32,768 x 12,288 embedding, 4.8 GB) and activations; 5 layers would
+# reckon to ~62 GB, 6 to ~73 GB
+MISTRAL_TRAIN_LAYERS = 4
+# a narrow model at mistral-large-123b's head ratio (24 query heads over
+# 2, a group of 12: the decode kernel's chunked grid), head dim 16, its
+# int8 cache; the CPU tests hold the same model against the JAX package
+MISTRAL_NARROW = dict(n_heads=24, n_kv_heads=2, head_dim=16)
+
+
+def phase_vlm_model(torch, np, card: str):
+    """``pixtral-12b`` at full size (40 layers, bf16, random weights from
+    seed 0), after every earlier model is freed: served through
+    ``Model.prefill_step`` / ``decode_step`` (neither package's engine
+    takes patches) with ``VLM_SERVE_ROWS`` prompts of
+    ``VLM_SERVE_PROMPT`` tokens, each with 256 seeded patch embeddings
+    over its first positions, and ``VLM_SERVE_NEW`` greedy decode steps;
+    the attention counts are zeroed just before and read just after (the
+    prefill on the tensor-core route, the decode on the whole grid).  Then
+    the same model's dry-run cells through ``dryrun_cells``:
+    ``prefill_32k`` at a global batch of 1 with its 256 patch embeddings
+    and ``decode_32k`` at as many rows as fit."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import DTYPES
+
+    _expect("vlm model", "10-45")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(VLM_ARCH)
+    model = build_model(cfg, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(0)
+    n_params = sum(t.numel() for t in _leaves(params))
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    B, T = VLM_SERVE_ROWS, VLM_SERVE_PROMPT
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    patches = torch.randn((B, cfg.n_patches, cfg.d_model), generator=gen,
+                          device="cuda", dtype=DTYPES[cfg.dtype])
+    say(f"[vlm {VLM_ARCH}] {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, "
+        f"{n_params} parameters, {weight_bytes / 1e9:.3f} GB of {cfg.dtype} "
+        f"weights; {B} prompts of {T} tokens with {cfg.n_patches} patch "
+        f"embeddings each")
+    _reset_attention(fa)
+    dec.DISPATCHES.reset()
+    dec.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill_step(
+        params, {"tokens": tokens, "patch_embeds": patches},
+        max_len=T + VLM_SERVE_NEW)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    stream, finite = [], [torch.isfinite(logits).all()]
+    t0 = time.perf_counter()
+    for _ in range(VLM_SERVE_NEW):
+        tok = logits.argmax(dim=-1).to(torch.int32)[:, None]
+        stream.append(tok)
+        logits, cache = model.decode_step(params, cache, tok, lens)
+        finite.append(torch.isfinite(logits).all())
+        lens = lens + 1
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    fwd, _, routes, _ = _count_attention(fa)
+    decode = dec.DISPATCHES.snapshot()
+    groups = dec.launches_by_group()
+    peak = torch.cuda.max_memory_allocated()
+    stream = torch.cat(stream, dim=1).tolist()
+    n_attn = _mixers(cfg)[0]
+    check(bool(torch.stack(finite).all()), f"{VLM_ARCH}: a logit is not finite")
+    check(all(0 <= t < cfg.vocab_size for row in stream for t in row),
+          f"{VLM_ARCH}: a sampled token is out of the vocabulary")
+    check(fwd.launches == fwd.kernel_launches == n_attn
+          and routes == {"tc": n_attn, "simt": 0},
+          f"{VLM_ARCH} prefill: flash {vars(fwd)}, by route {routes}")
+    check(decode.launches == decode.kernel_launches == n_attn * VLM_SERVE_NEW
+          and groups == {"whole": decode.launches, "chunked": 0},
+          f"{VLM_ARCH} decode: {vars(decode)}, by grid {groups}")
+    ms_per_step = decode_s / VLM_SERVE_NEW * 1e3
+    cache_bytes = sum(t.numel() * t.element_size() for t in _leaves(cache))
+    stats = dict(rows=B, prompt_tokens=B * T, patch_embeds=list(patches.shape),
+                 new_tokens=B * VLM_SERVE_NEW, prefill_s=prefill_s,
+                 prefill_tok_per_s=B * T / prefill_s,
+                 ms_per_decode_step=ms_per_step,
+                 # a decode step reads every weight and the cache once
+                 read_floor_ms=(weight_bytes + cache_bytes)
+                 / PEAK_BYTES_PER_S * 1e3,
+                 n_params=n_params, weight_gb=weight_bytes / 1e9,
+                 peak_gb=peak / 1e9, flash=vars(fwd), decode=vars(decode),
+                 decode_grids=groups, card=card)
+    say(f"[vlm {VLM_ARCH}] served: {json.dumps(stats)}")
+    say(f"[vlm {VLM_ARCH}] greedy streams: {stream}")
+    del logits, cache, tokens, patches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # decode_32k at as many rows as fit beside the weights
+    shape = SHAPES["decode_32k"]
+    row_bytes = sum(t.numel() * t.element_size() for t in _leaves(
+        build_model(cfg, "meta").init_cache(1, shape.seq_len)))
+    free, _ = torch.cuda.mem_get_info()
+    rows = int((free - VLM_DECODE_MARGIN_GB * 1e9) // row_bytes)
+    rows = max(1, min(rows, shape.global_batch))
+    cells = (("prefill_32k", 1), ("decode_32k", rows))
+    say(f"[dryrun card] {VLM_ARCH} at full size on the host mesh; cuts: "
+        f"prefill_32k global batch {SHAPES['prefill_32k'].global_batch} -> "
+        f"1, decode_32k {shape.global_batch} -> {rows} (a row's cache "
+        f"{row_bytes / 1e9:.3f} GB, {free / 1e9:.3f} GB free beside the "
+        f"weights, {VLM_DECODE_MARGIN_GB} GB kept for the step)")
+    out, counts = dryrun_cells(torch, card, VLM_ARCH, cells, model, params,
+                               gen)
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(cell_kernels(torch, card, VLM_ARCH, cfg, rows, gen))
+    return fwd, decode, counts["prefill_32k"], counts["decode_32k"], out
+
+
+def phase_dense_model(torch, np):
+    """``mistral-large-123b`` at full width with its depth cut to
+    ``MISTRAL_LAYERS``, after every earlier model is freed, through
+    ``serve_attention_model`` (the six prompts, ``ServeEngine``): its
+    int8 cache dequantised through the decode kernel, every decode launch
+    on the chunked grid (a group of 12), decode ms a step beside the
+    floor of its reads."""
+    import gc
+
+    _expect("dense model", "6-25")
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[model {DENSE_ARCH}] {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+        f"allocated before the model is drawn")
+    cfg, _, _, flash, decode, _, stats = serve_attention_model(
+        torch, np, DENSE_ARCH, n_layers=MISTRAL_LAYERS)
+    check(cfg.kv_cache_dtype == "int8" and "int8" in stats["cache_dtypes"],
+          f"{DENSE_ARCH}: the cache holds {stats['cache_dtypes']}, no int8")
+    say(f"[model {DENSE_ARCH}] decode {stats['ms_per_decode_step']:.3f} ms a "
+        f"step against a floor of {stats['weight_read_floor_ms']:.3f} ms "
+        f"(its {stats['weight_gb']:.3f} GB of weights read once)")
+    return flash, decode
+
+
+def phase_dense_parity(torch, np):
+    """The narrow model at mistral-large-123b's head ratio
+    (``MISTRAL_NARROW``, fp32, int8 cache) served on cpu and on cuda
+    through ``smoke_parity``: identical greedy streams and logits within
+    1e-4, every cuda decode launch on the chunked grid."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+
+    _expect("dense parity", "1-6")
+    cfg = dataclasses.replace(smoke_config(DENSE_ARCH), **MISTRAL_NARROW)
+    dec.LAUNCHES.clear()
+    smoke_parity(torch, np, DENSE_ARCH, [fa.DISPATCHES, dec.DISPATCHES],
+                 cfg=cfg)
+    groups = dec.launches_by_group()
+    check(groups == {"whole": 0,
+                     "chunked": dec.DISPATCHES.kernel_launches},
+          f"the narrow {DENSE_ARCH} (G = 12): decode launches by grid "
+          f"{groups}")
+    say(f"[model parity] narrow {DENSE_ARCH} ({cfg.n_heads} over "
+        f"{cfg.n_kv_heads} heads of {cfg.head_dim}, {cfg.kv_cache_dtype} "
+        f"cache): {groups['chunked']} decode launches, all on the chunked "
+        f"grid")
+
+
+def phase_dense_train(torch, np):
+    """``FTTrainer`` on ``mistral-large-123b`` at full width with its depth
+    cut to ``MISTRAL_TRAIN_LAYERS`` (bf16, factored moments, remat):
+    every attention forward and backward on the kernels at a group of 12,
+    the factored ``v_row`` / ``v_col`` updated on the card."""
+    _expect("dense train", "6-25")
+    return train_full_model(torch, np, DENSE_ARCH,
+                            n_layers=MISTRAL_TRAIN_LAYERS)[1:3]
+
+
+def phase_vlm_train(torch, np):
+    """``Model.train_step`` on ``pixtral-12b`` at full width with its depth
+    cut to ``VLM_TRAIN_LAYERS`` (bf16, fp32 moments, remat) and random
+    weights (seed 0), a batch of ``VLM_TRAIN_BATCH`` rows of
+    ``VLM_TRAIN_SEQ`` + 1 tokens, each with 256 seeded patch embeddings
+    (``FTTrainer``'s data feeds tokens only, in both packages); a warm-up
+    step, two timed, one profiled.  The attention counts are zeroed just
+    before and read just after: every forward (twice a layer under remat)
+    and backward on the kernels' tensor-core routes.  ``mfu`` counts the
+    held parameters per position and 12 flops a head dim, head and
+    visible causal pair."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import DTYPES
+
+    _expect("vlm train", "5-25")
+    cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_TRAIN_LAYERS)
+    B, T = VLM_TRAIN_BATCH, VLM_TRAIN_SEQ
+    model = build_model(cfg, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    state = model.init_train_state(0)
+    n = sum(t.numel() for t in _leaves(state.params))
+    reckoned = reckon_train_state(cfg, state.params, grads=1)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(32)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, T + 1),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32),
+             "patch_embeds": torch.randn((B, cfg.n_patches, cfg.d_model),
+                                         generator=gen, device="cuda",
+                                         dtype=DTYPES[cfg.dtype])}
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    say(f"[train {VLM_ARCH}] {cfg.n_layers} layers (depth cut from "
+        f"{get_config(VLM_ARCH).n_layers}), d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, {n} "
+        f"parameters held, {cfg.dtype}, {cfg.optimizer_moments} moments, "
+        f"remat={cfg.remat}; batch {B} x {T + 1} tokens with "
+        f"{cfg.n_patches} patch embeddings a row; {state_gb:.3f} GB with "
+        f"the batch; reckoned: {json.dumps(reckoned)}")
+
+    _reset_attention(fa)
+    losses = []
+
+    def step():
+        nonlocal state
+        state, metrics = model.train_step(state, batch)
+        losses.append(float(metrics["loss"]))
+
+    step_ms, trace = timed_steps(torch, step, VLM_TRAIN_STEPS,
+                                 f"[train {VLM_ARCH}]")
+    fwd, bwd, routes, bwd_routes = _count_attention(fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    check(len(losses) == VLM_TRAIN_STEPS and all(np.isfinite(losses))
+          and losses[1] != losses[0], f"{VLM_ARCH} training losses {losses}")
+    n_attn = _mixers(cfg)[0]
+    want_bwd = n_attn * VLM_TRAIN_STEPS
+    want_fwd = want_bwd * (2 if cfg.remat else 1)
+    check(fwd.launches == fwd.kernel_launches == want_fwd
+          and routes == {"tc": want_fwd, "simt": 0},
+          f"flash_attention forward {vars(fwd)}, by route {routes} != "
+          f"{want_fwd}")
+    check(bwd.launches == bwd.kernel_launches == want_bwd
+          and bwd_routes == {"tc": want_bwd, "simt": 0},
+          f"flash_attention backward {vars(bwd)}, by route {bwd_routes} != "
+          f"{want_bwd}")
+    tokens = B * T
+    flops = (6 * n * tokens + 12 * n_attn * cfg.n_heads * cfg.head_dim
+             * fa.visible_pairs(T, T, None) * B)
+    timed = step_ms[1:-1]
+    warm = sum(timed) / len(timed)
+    stats = dict(
+        steps=VLM_TRAIN_STEPS, losses=losses, step_ms=step_ms,
+        timed_steps=len(timed), warm_step_ms=warm,
+        warm_step_ms_spread=[min(timed), max(timed)], n_params=n,
+        positions_per_step=tokens, patch_positions_per_step=B * cfg.n_patches,
+        tokens_per_s=tokens / warm * 1e3, model_flops_per_step=flops,
+        mfu=flops / (warm / 1e3) / PEAK_BF16_OPS_PER_S,
+        state_gb=state_gb, peak_gb=peak_gb, reckoned=reckoned,
+        flash_forward=vars(fwd), flash_backward=vars(bwd),
+        expected_forward=want_fwd, expected_backward=want_bwd)
+    stats.update(trace_stats(trace))
+    say(f"[train {VLM_ARCH}] trained: {json.dumps(stats)}")
+    del model, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fwd, bwd
 
 
 def main() -> int:
@@ -3861,13 +4439,22 @@ def main() -> int:
         flash[GROK_ARCH], decode[GROK_ARCH] = run(phase_grok_model, torch, np)
         (flash[HYBRID_ARCH], decode[HYBRID_ARCH],
          hybrid_scans) = run(phase_hybrid_model, torch, np)
+        flash[DENSE_ARCH], decode[DENSE_ARCH] = run(phase_dense_model,
+                                                    torch, np)
         run(phase_moe_parity, torch, np)
+        run(phase_dense_parity, torch, np)
         bres = run(phase_attention_bwd, torch,
                    ares[("flash_attention", "path", "bfloat16")]["device_ms"])
         sbres = run(phase_mamba_bwd, torch)
-        _, bwd[TRAIN_ARCH] = run(phase_train, torch, np)
-        _, bwd[MOE_ARCH] = run(phase_moe_train, torch, np)
+        flash[f"{TRAIN_ARCH} train"], bwd[TRAIN_ARCH] = run(phase_train,
+                                                            torch, np)
+        flash[f"{MOE_ARCH} train"], bwd[MOE_ARCH] = run(phase_moe_train,
+                                                        torch, np)
         train_scans, scan_bwd = run(phase_ssm_train, torch, np)
+        (flash[f"{DENSE_ARCH} train"],
+         bwd[f"{DENSE_ARCH} train"]) = run(phase_dense_train, torch, np)
+        (flash[f"{VLM_ARCH} train"],
+         bwd[f"{VLM_ARCH} train"]) = run(phase_vlm_train, torch, np)
         run(phase_ft, torch, np)
         run(phase_train_parity, torch, np)
         run(phase_moe_train_parity, torch, np)
@@ -3882,6 +4469,9 @@ def main() -> int:
         (flash[f"{DRYRUN_ARCH} prefill_32k"],
          decode[f"{DRYRUN_ARCH} decode_32k"], _) = run(phase_dryrun_card,
                                                         torch, np, card)
+        (flash[f"{VLM_ARCH} serve"], decode[f"{VLM_ARCH} serve"],
+         flash[f"{VLM_ARCH} prefill_32k"], decode[f"{VLM_ARCH} decode_32k"],
+         _) = run(phase_vlm_model, torch, np, card)
         leaked = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m == "repro" or m.startswith("repro."))

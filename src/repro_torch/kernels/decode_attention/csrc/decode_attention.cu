@@ -353,11 +353,16 @@ int launch_split(const void* q, const void* k, const void* v,
                  const void* lens, float* part_ml, float* part_acc, int B,
                  int Hq, int Hkv, int S, int D, int L, int n_splits,
                  int n_chunks, int chunk_heads, int lpr, float scale_log2,
-                 int window, cudaStream_t stream) {
+                 int window, cudaStream_t stream, int* launched) {
   // rows in flight per lane group, fewer where the group's registers grow
   constexpr int U0 = GMAX <= 2 ? 8 : (GMAX <= 4 ? 4 : 2);
   constexpr int U = U0 / VPL;
   const dim3 grid(n_splits, Hkv * n_chunks, B);
+  launched[0] = static_cast<int>(grid.x);
+  launched[1] = static_cast<int>(grid.y);
+  launched[2] = static_cast<int>(grid.z);
+  launched[3] = GMAX;
+  launched[4] = chunk_heads;
   decode_attention_kernel_split<T, VPL, GMAX, U>
       <<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -367,32 +372,35 @@ int launch_split(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// GMAX from the group G = Hq / Hkv: 2 or 4 heads a block for G <= 4, else
+// 8, with a group larger than 8 cut into n_chunks = ceil(G / 8) chunks of
+// chunk_heads = ceil(G / n_chunks) heads (G = 12: two blocks of 6).
 template <typename T, int VPL>
 int dispatch_g(const void* q, const void* k, const void* v, const void* lens,
                float* part_ml, float* part_acc, int B, int Hq, int Hkv, int S,
                int D, int L, int n_splits, int lpr, float scale_log2,
-               int window, cudaStream_t stream) {
+               int window, cudaStream_t stream, int* launched) {
   const int G = Hq / Hkv;
   if (G <= 2)
     return launch_split<T, VPL, 2>(q, k, v, lens, part_ml, part_acc, B, Hq,
                                    Hkv, S, D, L, n_splits, 1, G, lpr,
-                                   scale_log2, window, stream);
+                                   scale_log2, window, stream, launched);
   if (G <= 4)
     return launch_split<T, VPL, 4>(q, k, v, lens, part_ml, part_acc, B, Hq,
                                    Hkv, S, D, L, n_splits, 1, G, lpr,
-                                   scale_log2, window, stream);
+                                   scale_log2, window, stream, launched);
   const int n_chunks = (G + 7) / 8;
   const int chunk_heads = (G + n_chunks - 1) / n_chunks;
   return launch_split<T, VPL, 8>(q, k, v, lens, part_ml, part_acc, B, Hq, Hkv,
                                  S, D, L, n_splits, n_chunks, chunk_heads, lpr,
-                                 scale_log2, window, stream);
+                                 scale_log2, window, stream, launched);
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* lens,
            void* o, float* part_ml, float* part_acc, int B, int Hq, int Hkv,
            int S, int D, int L, int n_splits, float scale, int window,
-           cudaStream_t stream) {
+           cudaStream_t stream, int* launched) {
   constexpr int V = 16 / sizeof(T);
   const int vecs = (D + V - 1) / V;  // 16-byte vectors in a row
   int lpr = 4;
@@ -401,13 +409,16 @@ int launch(const void* q, const void* k, const void* v, const void* lens,
   int err;
   if constexpr (V == 8)  // bf16: a row of D <= 256 is at most 32 vectors
     err = dispatch_g<T, 1>(q, k, v, lens, part_ml, part_acc, B, Hq, Hkv, S, D,
-                           L, n_splits, lpr, scale_log2, window, stream);
+                           L, n_splits, lpr, scale_log2, window, stream,
+                           launched);
   else
     err = vecs <= 32
         ? dispatch_g<T, 1>(q, k, v, lens, part_ml, part_acc, B, Hq, Hkv, S,
-                           D, L, n_splits, lpr, scale_log2, window, stream)
+                           D, L, n_splits, lpr, scale_log2, window, stream,
+                           launched)
         : dispatch_g<T, 2>(q, k, v, lens, part_ml, part_acc, B, Hq, Hkv, S,
-                           D, L, n_splits, lpr, scale_log2, window, stream);
+                           D, L, n_splits, lpr, scale_log2, window, stream,
+                           launched);
   if (err != 0) return err;
   const int rows = B * Hq;
   decode_attention_kernel_combine<T>
@@ -424,13 +435,16 @@ int launch(const void* q, const void* k, const void* v, const void* lens,
 // on the device.  window < 0 means no window.  The host splits [0, S) into
 // n_splits splits of L slots (L % 64 == 0, n_splits * L >= S) and passes
 // fp32 scratch part_ml [B, Hq, n_splits, 2] and part_acc [B, Hq, n_splits,
-// D].  The host checks Hq % Hkv == 0, D % 8 == 0 and 8 <= D <= 256.
+// D].  The host checks Hq % Hkv == 0, D % 8 == 0 and 8 <= D <= 256.  The
+// split kernel's launch is written to launched[5]: its grid (x, y, z),
+// GMAX and the query heads a block serves (y = Hkv * n_chunks).
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* cache_len,
                                        void* o, void* part_ml, void* part_acc,
                                        int B, int Hq, int Hkv, int S, int D,
                                        int L, int n_splits, float scale,
-                                       int window, int dtype, void* stream) {
+                                       int window, int dtype, void* stream,
+                                       int* launched) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || S <= 0 || D <= 0 ||
       D > kDMax || L <= 0 || L % 64 != 0 || n_splits <= 0 ||
       static_cast<int64_t>(n_splits) * L < S)
@@ -440,9 +454,10 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
   float* acc = static_cast<float*>(part_acc);
   if (dtype == 0)
     return launch<float>(q, k, v, cache_len, o, ml, acc, B, Hq, Hkv, S, D, L,
-                         n_splits, scale, window, st);
+                         n_splits, scale, window, st, launched);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, cache_len, o, ml, acc, B, Hq, Hkv,
-                                 S, D, L, n_splits, scale, window, st);
+                                 S, D, L, n_splits, scale, window, st,
+                                 launched);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -9,7 +9,8 @@ a CUDA graph.
 
 Every call is tallied in :data:`DISPATCHES` (rows = query rows,
 ``B * Hq``); ``kernel_launches`` counts the calls that launched the CUDA
-kernels.
+kernels (:data:`.kernel.LAUNCHES` counts them by the grid the launcher
+reported).
 
 On a ``meta`` tensor (the dry run) the wrapper allocates its output and
 adds the kernels' FLOPs and bytes (:func:`decode_work`) to

@@ -58,6 +58,11 @@ FLASH_CASES = [
     (1, 2, 2, 256, 256, 64, jnp.float32, True, 128),
     (1, 2, 2, 256, 256, 64, jnp.float32, True, 999),
     (1, 1, 1, 128, 128, 64, jnp.float32, False, None),   # noncausal
+    # mistral-large-123b's group of 12 (96 over 8 heads) and
+    # pixtral-12b's of 4 (32 over 8)
+    (1, 24, 2, 128, 128, 64, jnp.float32, True, None),
+    (1, 12, 1, 128, 128, 128, jnp.bfloat16, True, None),
+    (1, 8, 2, 256, 256, 128, jnp.float32, True, None),
 ]
 
 
@@ -111,6 +116,10 @@ DECODE_CASES = [
     (1, 8, 2, 512, 64, jnp.float32, None),     # GQA group 4
     (2, 4, 1, 256, 128, jnp.bfloat16, None),
     (1, 4, 2, 512, 64, jnp.float32, 128),      # windowed decode
+    # mistral-large-123b's group of 12, which the CUDA kernel cuts into
+    # two chunks of 6 heads a block
+    (2, 24, 2, 256, 64, jnp.float32, None),
+    (2, 12, 1, 512, 128, jnp.bfloat16, None),
 ]
 
 

@@ -35,6 +35,8 @@ over the states in another order, and 2e-2 for its bf16 ``y``, rounded
 once from those sums; exact equality for ``dot_seen`` and the clock
 lattice (booleans, integers).
 """
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -45,7 +47,8 @@ from repro_torch.kernels.clock_ops.kernel import staged as clock_staged
 
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref)
-from repro_torch.kernels.decode_attention.kernel import plan_splits
+from repro_torch.kernels.decode_attention.kernel import (
+    LAUNCHES as DECODE_LAUNCHES, Launch as DecodeLaunch, plan_splits)
 from repro_torch.kernels.flash_attention import (BWD_DISPATCHES,
                                                  BWD_ROUTE_LAUNCHES,
                                                  ROUTE_LAUNCHES,
@@ -167,7 +170,7 @@ def test_flash_tensor_core_route_matches_plain(cuda, D, T, S, window, G):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("D", [64, 128, 256])
-@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("G", [1, 2, 8, 12])
 def test_decode_split_route_matches_plain(cuda, G, D, dtype, tol, window):
     B, Hkv, S = 6, 2, 640
     L, n_splits = plan_splits(S, Hkv, B)
@@ -181,7 +184,15 @@ def test_decode_split_route_matches_plain(cuda, G, D, dtype, tol, window):
     q = _normal(g, (B, G * Hkv, D), dtype, cuda)
     k = _normal(g, (B, Hkv, S, D), dtype, cuda)
     v = _normal(g, (B, Hkv, S, D), dtype, cuda)
+    before = collections.Counter(DECODE_LAUNCHES)
     got = decode_attention(q, k, v, lens, window=w)
+    # a group above 8 (mistral-large-123b's 12) is cut into two chunks of
+    # blocks, 6 heads each
+    n_chunks = 2 if G > 8 else 1
+    assert DECODE_LAUNCHES - before == {DecodeLaunch(
+        grid=(n_splits, Hkv * n_chunks, B),
+        gmax=2 if G <= 2 else 4 if G <= 4 else 8,
+        chunk_heads=-(-G // n_chunks), n_chunks=n_chunks): 1}
     want = decode_attention_ref(q, k, v, lens, window=w)
     # a row with no valid slot gives 0 (the plain version averages them all)
     assert torch.all(got[0] == 0)
@@ -563,6 +574,10 @@ def test_clock_popcount_kernel_matches_plain_on_the_card(cuda, shape):
     pytest.param(1, 4, 2, 70, 300, 128, None, True, id="T-under-S-tail"),
     pytest.param(1, 24, 8, 512, 512, 128, None, True,
                  id="train-grouping-24-8"),
+    # mistral-large-123b's group of 12: a key's dK / dV sums 12 x 1,024
+    # rows
+    pytest.param(1, 24, 2, 1024, 1024, 128, None, True,
+                 id="mistral-grouping-12"),
     # head dims below a block of columns: zeros pad them to 64 / 128
     pytest.param(1, 4, 2, 96, 96, 8, None, True, id="D8"),
     pytest.param(1, 4, 2, 130, 130, 40, 50, True, id="D40-window"),
