@@ -273,7 +273,17 @@ Phases, each printed as it runs; any failure exits non-zero:
     cells as the dryrun card phase runs gemma-7b's: ``prefill_32k`` at a
     global batch of 1 with its 256 patch embeddings (and, once more,
     without them: other logits) and ``decode_32k`` at as many rows as fit
-    beside the weights (cut from 128).
+    beside the weights (cut from 128);
+36. examples — the port's four examples (``examples_torch/``:
+    ``quickstart``, ``bigset_cluster``, ``serve_batched``, ``train_ft``)
+    and its query cookbook (``docs_torch/run_cookbook.py``), in this
+    process on ``cuda`` through each one's ``main``, its output captured:
+    every line CI greps the reference's for; the attention counts zeroed
+    just before each driver and read just after, ``serve_batched``'s
+    prefills and decode steps and ``train_ft``'s forwards and backwards
+    all on the kernels; every bigset cluster of the demos and the
+    cookbook on the card, every ``dot_seen`` dispatch (none: their
+    batches are below ``MIN_BATCH``) on the kernel, 18 cookbook blocks.
 
 Each phase prints its seconds (``[time]``); the dry-run phases and the
 dense family's print their expected seconds before they run.  The line before the last is
@@ -284,7 +294,9 @@ path's count beside; the encoder-decoder's as ``whisper-tiny serve`` and
 ``gemma-7b decode_32k``, pixtral-12b's as ``pixtral-12b serve``,
 ``pixtral-12b prefill_32k``, ``pixtral-12b decode_32k`` and
 ``pixtral-12b train``, mistral-large-123b's as ``mistral-large-123b`` and
-``mistral-large-123b train``); the last line is
+``mistral-large-123b train``, the examples' as ``serve_batched example``
+and ``train_ft example``, and ``dot_seen``'s as ``main``, ``cluster`` and
+``examples``); the last line is
 ``{"ok": true, "device": {...}}``.  The script imports
 neither ``jax`` nor the JAX package ``repro``.
 """
@@ -4400,6 +4412,122 @@ def phase_vlm_train(torch, np):
     return fwd, bwd
 
 
+# --------------------------------------------------------------- examples
+EXAMPLES_DIR, DOCS_DIR = ROOT / "examples_torch", ROOT / "docs_torch"
+# each driver's promised lines (CI greps the reference's for the same)
+PROMISED = {
+    "quickstart": ("semantically equivalent to Riak ORSWOT sets",
+                   "anti-entropy convergence"),
+    "bigset_cluster": ("converged; concurrent re-add beat the remove",
+                       "served scan agrees with every replica"),
+    "serve_batched": ("all requests served",),
+    "train_ft": ("loss improved across crash/restore/elastic events",),
+    "cookbook": ("cookbook: 18 blocks executed green",
+                 "converged in ", "healed "),
+}
+COOKBOOK_BLOCKS = 18
+# the model drivers and the ledgers each must launch; the others build
+# bigset clusters
+EXAMPLE_KERNELS = {"serve_batched": ("flash", "decode"),
+                   "train_ft": ("flash", "flash_bwd")}
+
+
+class ClustersBuilt(contextlib.AbstractContextManager):
+    """While installed, every ``BigsetCluster`` built, in order: it wraps
+    the class's ``__init__`` (the drivers import the class itself) and
+    restores it on exit."""
+
+    def __init__(self):
+        from repro_torch.cluster.clusters import BigsetCluster
+
+        self.cls, self.clusters = BigsetCluster, []
+
+    def __enter__(self):
+        real = self._real = self.cls.__init__
+
+        def init(cluster, *args, **kw):
+            real(cluster, *args, **kw)
+            self.clusters.append(cluster)
+
+        self.cls.__init__ = init
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__init__ = self._real
+        return False
+
+
+def _driver_main(path: Path):
+    """A driver's ``main``, loaded from its file as a module of its own."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"chip_smoke_{path.parent.name}_{path.stem}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.main
+
+
+def phase_examples(torch):
+    """The port's four examples and its query cookbook, in this process on
+    ``cuda``, each through its ``main``: every promised line printed; each
+    attention ledger zeroed just before a driver and read just after
+    (``serve_batched`` launches B4 and B5, ``train_ft`` B4 and B4'); every
+    bigset cluster on the card and every ``dot_seen`` dispatch a kernel
+    launch (the demos' batches are below ``query/batch.MIN_BATCH``, so none
+    may happen).  Returns each driver's counts."""
+    import io
+
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import dot_seen
+    from repro_torch.kernels import flash_attention as fa
+
+    _expect("examples", "15-60")
+    ledgers = {"flash": fa.DISPATCHES, "flash_bwd": fa.BWD_DISPATCHES,
+               "decode": dec.DISPATCHES, "dot_seen": dot_seen.DISPATCHES}
+    drivers = [(name, EXAMPLES_DIR / f"{name}.py")
+               for name in ("quickstart", "bigset_cluster", "serve_batched",
+                            "train_ft")]
+    drivers.append(("cookbook", DOCS_DIR / "run_cookbook.py"))
+    out = {}
+    for name, path in drivers:
+        main = _driver_main(path)
+        text = io.StringIO()
+        for ledger in ledgers.values():
+            ledger.reset()
+        t0 = time.perf_counter()
+        with ClustersBuilt() as built, contextlib.redirect_stdout(text):
+            ret = main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: ledger.snapshot() for k, ledger in ledgers.items()}
+        text = text.getvalue()
+        say(f"[examples {name}] {seconds:.2f}s; clusters on "
+            f"{sorted({c.device.type for c in built.clusters})}; dispatches "
+            + json.dumps({k: vars(c) for k, c in counts.items()}))
+        for line in text.splitlines():
+            if line.startswith(("final:", "model:", "converged in",
+                                "replayed ")):
+                say(f"[examples {name}] {line}")
+        for line in PROMISED[name]:
+            check(line in text, f"{name} did not print {line!r}")
+        for k, c in counts.items():
+            check(c.kernel_launches == c.launches,
+                  f"{name}: a {k} dispatch missed its CUDA kernel")
+        if name in EXAMPLE_KERNELS:
+            check(all(counts[k].launches > 0 for k in EXAMPLE_KERNELS[name]),
+                  f"{name} launched no attention kernel: {counts}")
+        else:
+            check(bool(built.clusters) and all(
+                c.device.type == "cuda" for c in built.clusters),
+                f"{name}: a bigset cluster is not on the card")
+        if name == "cookbook":
+            check(ret == COOKBOOK_BLOCKS,
+                  f"the cookbook ran {ret} blocks, not {COOKBOOK_BLOCKS}")
+        out[name] = counts
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -4472,6 +4600,11 @@ def main() -> int:
         (flash[f"{VLM_ARCH} serve"], decode[f"{VLM_ARCH} serve"],
          flash[f"{VLM_ARCH} prefill_32k"], decode[f"{VLM_ARCH} decode_32k"],
          _) = run(phase_vlm_model, torch, np, card)
+        ex = run(phase_examples, torch)
+        flash["serve_batched example"] = ex["serve_batched"]["flash"]
+        decode["serve_batched example"] = ex["serve_batched"]["decode"]
+        flash["train_ft example"] = ex["train_ft"]["flash"]
+        bwd["train_ft example"] = ex["train_ft"]["flash_bwd"]
         leaked = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m == "repro" or m.startswith("repro."))
@@ -4480,14 +4613,17 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     path = kres["path"]
+    seen_by_path = {"main": launched.kernel_launches,
+                    "cluster": cluster_launched.kernel_launches,
+                    "examples": sum(c["dot_seen"].kernel_launches
+                                    for c in ex.values())}
     kernels = [{
         "name": "dot_seen",
         "route": "cuda",
         "source": "src/repro_torch/kernels/dot_seen/csrc/dot_seen.cu",
         "replaces": "src/repro/kernels/dot_seen/kernel.py:53",
-        "launches": launched.kernel_launches + cluster_launched.kernel_launches,
-        "launches_by_path": {"main": launched.kernel_launches,
-                             "cluster": cluster_launched.kernel_launches},
+        "launches": sum(seen_by_path.values()),
+        "launches_by_path": seen_by_path,
         "max_abs_err": max(r["max_abs_err"] for r in kres.values()),
         "ms": path["ms"],
         "plain_ms": path["plain_ms"],

@@ -214,6 +214,7 @@ def test_train_state_round_trips_bit_equal(moments):
     fresh = model.init_train_state(4)
     restored = unflatten_state(fresh, store.restore(RUN, expect=names))
     assert restored is fresh
-    for (path, got), want in zip(leaves_with_path(restored), saved):
+    for (path, got), want in zip(leaves_with_path(restored), saved,
+                                 strict=True):
         assert got.dtype == want.dtype, path
         assert torch.equal(got, want), path

@@ -42,6 +42,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import build_model
 from repro_torch.serve import ServeEngine
 from repro_torch.tree import leaves_with_path
+from torch_trees import assert_trees_close
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 STEP_TOL = dict(atol=2e-5, rtol=2e-5)
@@ -76,12 +77,7 @@ def _state(arch):
 
 def _assert_trees_close(got, want_jax, cfg, **tol):
     want = params_from_jax(cfg, jax.tree.map(np.asarray, want_jax), "cpu")
-    got_l, want_l = list(leaves_with_path(got)), list(leaves_with_path(want))
-    assert [p for p, _ in got_l] == [p for p, _ in want_l]
-    for (path, g), (_, w) in zip(got_l, want_l):
-        assert g.dtype == w.dtype, path
-        assert_allclose(_np(g), _np(w), err_msg=str(path), **tol)
-    return [p for p, _ in got_l]
+    return assert_trees_close(got, want, **tol)
 
 
 @pytest.mark.parametrize("arch", sorted(RATIOS))

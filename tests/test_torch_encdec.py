@@ -47,6 +47,7 @@ from repro_torch.models.transformer import (encoder_forward, forward,
 from repro_torch.serve import ServeEngine
 from repro_torch.train import DataConfig, SyntheticLM
 from repro_torch.tree import leaves, leaves_with_path
+from torch_trees import assert_trees_close
 
 ARCH = "whisper-tiny"
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -94,11 +95,7 @@ def _batch(cfg, tokens, frames):
 
 def _assert_trees_close(got, want_jax, cfg, **tol):
     want = params_from_jax(cfg, jax.tree.map(np.asarray, want_jax), "cpu")
-    got_l, want_l = leaves_with_path(got), leaves_with_path(want)
-    assert [p for p, _ in got_l] == [p for p, _ in want_l]
-    for (path, g), (_, w) in zip(got_l, want_l):
-        assert g.dtype == w.dtype, path
-        assert_allclose(_np(g), _np(w), err_msg=str(path), **tol)
+    assert_trees_close(got, want, **tol)
 
 
 # ------------------------------------------------------------- structure
@@ -323,7 +320,8 @@ def test_remat_passes_the_encoder_output_to_each_recomputed_layer():
         out[remat] = model.grad_step(params, batch)
     assert torch.equal(out[True][0], out[False][0])
     for (path, a), (_, b) in zip(leaves_with_path(out[True][1]),
-                                 leaves_with_path(out[False][1])):
+                                 leaves_with_path(out[False][1]),
+                                 strict=True):
         assert torch.allclose(a, b, rtol=1e-6, atol=1e-7), path
     assert float(out[True][1]["encoder"]["final_norm"]["scale"].abs().sum()) > 0
 

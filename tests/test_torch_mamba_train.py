@@ -39,7 +39,8 @@ from repro_torch.kernels.mamba_scan import (MambaScanFunction, mamba_scan,
                                             mamba_scan_ref)
 from repro_torch.models import build_model
 from repro_torch.models.mamba import mamba_forward
-from repro_torch.tree import leaves, leaves_with_path
+from repro_torch.tree import leaves
+from torch_trees import adam_step_at_rounding, assert_trees_close
 
 ARCH = "falcon-mamba-7b"
 NAMES = ("x", "delta", "A", "Bm", "Cm", "D")
@@ -230,11 +231,7 @@ def _tokens(cfg, B=4, T=33, seed=0):
 
 def _assert_trees_close(got, want_jax, cfg, **tol):
     want = params_from_jax(cfg, jax.tree.map(np.asarray, want_jax), "cpu")
-    got_l, want_l = leaves_with_path(got), leaves_with_path(want)
-    assert [p for p, _ in got_l] == [p for p, _ in want_l]
-    for (path, g), (_, w) in zip(got_l, want_l):
-        assert g.dtype == w.dtype, path
-        assert_allclose(_np(g), _np(w), err_msg=str(path), **tol)
+    assert_trees_close(got, want, **tol)
 
 
 @pytest.mark.parametrize("scan_layers", [True, False])
@@ -269,6 +266,14 @@ def test_remat_runs_the_scan_twice_and_keeps_gradients():
 
 def test_two_train_steps_match_jax():
     jcfg, tcfg, jmodel, jstate, tmodel, tstate = _both()
+    # the first step's gradients: where an entry's is at rounding level on
+    # both sides, the two AdamW steps may differ (adam_step_at_rounding)
+    tok = _tokens(tcfg, seed=20)
+    _, jg = jmodel.grad_step(jstate.params, {"tokens": jnp.asarray(tok)})
+    _, tg = tmodel.grad_step(tstate.params, {"tokens": torch.from_numpy(tok)})
+    first_step = adam_step_at_rounding(
+        tg, params_from_jax(tcfg, jax.tree.map(np.asarray, jg), "cpu"),
+        tmodel.opt_cfg.lr, grad_atol=1e-5)
     jstep = jax.jit(jmodel.train_step)
     for step in range(2):
         tok = _tokens(tcfg, seed=20 + step)
@@ -277,7 +282,7 @@ def test_two_train_steps_match_jax():
                                        {"tokens": torch.from_numpy(tok)})
         assert float(tm["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-5)
     _assert_trees_close(tstate.params, jstate.params, tcfg, rtol=1e-4,
-                        atol=1e-5)
+                        atol=1e-5, excuse=first_step)
     _assert_trees_close(tstate.opt["mu"], jstate.opt["mu"], tcfg, rtol=1e-4,
                         atol=1e-6)
 

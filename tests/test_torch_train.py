@@ -41,7 +41,8 @@ from repro_torch.train import (AdamWConfig, DataConfig, DeltaAggregator,
                                GradDelta, SyntheticLM, adamw_update,
                                init_opt_state)
 from repro_torch.train.optimizer import global_norm
-from repro_torch.tree import leaves, leaves_with_path
+from repro_torch.tree import leaves
+from torch_trees import assert_trees_close
 
 # gemma3-27b cut to two layers (both local: the sliding window's backward)
 ARCHS = [("minitron-4b", {}), ("gemma3-27b", {"n_layers": 2})]
@@ -77,11 +78,7 @@ def _tokens(cfg, B=4, T=33, seed=0):
 def _assert_trees_close(got, want_jax, cfg, **tol):
     """Every leaf of the port's tree against the JAX tree carried across."""
     want = params_from_jax(cfg, jax.tree.map(np.asarray, want_jax), "cpu")
-    got_l, want_l = leaves_with_path(got), leaves_with_path(want)
-    assert [p for p, _ in got_l] == [p for p, _ in want_l]
-    for (path, g), (_, w) in zip(got_l, want_l):
-        assert g.dtype == w.dtype, path
-        assert_allclose(_np(g), _np(w), err_msg=str(path), **tol)
+    assert_trees_close(got, want, **tol)
 
 
 # ------------------------------------------------------------------ data
