@@ -283,7 +283,8 @@ Phases, each printed as it runs; any failure exits non-zero:
     prefills and decode steps and ``train_ft``'s forwards and backwards
     all on the kernels; every bigset cluster of the demos and the
     cookbook on the card, every ``dot_seen`` dispatch (none: their
-    batches are below ``MIN_BATCH``) on the kernel, 18 cookbook blocks.
+    batches are below ``MIN_BATCH``) on the kernel, 19 cookbook blocks
+    (the last lints ``src/repro_torch`` with the port's linter).
 
 Each phase prints its seconds (``[time]``); the dry-run phases and the
 dense family's print their expected seconds before they run.  The line before the last is
@@ -4422,10 +4423,10 @@ PROMISED = {
                        "served scan agrees with every replica"),
     "serve_batched": ("all requests served",),
     "train_ft": ("loss improved across crash/restore/elastic events",),
-    "cookbook": ("cookbook: 18 blocks executed green",
+    "cookbook": ("cookbook: 19 blocks executed green",
                  "converged in ", "healed "),
 }
-COOKBOOK_BLOCKS = 18
+COOKBOOK_BLOCKS = 19
 # the model drivers and the ledgers each must launch; the others build
 # bigset clusters
 EXAMPLE_KERNELS = {"serve_batched": ("flash", "decode"),

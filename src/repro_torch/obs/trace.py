@@ -28,9 +28,10 @@ Design constraints, in order:
   missing leaf, a duplicated one is two leaves, never a broken tree.
 
 PyTorch port: a copy of :mod:`repro.obs.trace`; everything below
-this docstring is unchanged except bigset-lint comments: the lint scopes
-its layers by a ``repro`` path part, so the port's copies carry the
-suppressions their own paths need.
+this docstring is unchanged except its lint escapes: they are the port's
+linter's (``# bigset-lint-torch:``, read by ``python -m
+repro_torch.analysis``) in place of the reference's (``# bigset-lint:``,
+read by ``python -m repro.analysis``).
 """
 from __future__ import annotations
 
@@ -99,7 +100,7 @@ class Tracer:
 
     enabled = True
 
-    def __init__(self, clock: Callable[[], float] = time.monotonic):
+    def __init__(self, clock: Callable[[], float] = time.monotonic):  # bigset-lint-torch: disable=BS001 -- default for the *injectable* clock; deterministic runs inject a fake (tests/test_obs.py)
         self._clock = clock
         self._next_id = 0
         self._stack: List[Span] = []

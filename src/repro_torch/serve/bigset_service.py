@@ -34,9 +34,10 @@ request byte-string to one response byte-string, so any socket server,
 RPC framework, or in-process test can carry the protocol.
 
 PyTorch port: a copy of :mod:`repro.serve.bigset_service`; everything below
-this docstring is unchanged except bigset-lint comments: the lint scopes
-its layers by a ``repro`` path part, so the port's copies carry the
-suppressions their own paths need.
+this docstring is unchanged except its lint escapes: they are the port's
+linter's (``# bigset-lint-torch:``, read by ``python -m
+repro_torch.analysis``) in place of the reference's (``# bigset-lint:``,
+read by ``python -m repro.analysis``).
 """
 from __future__ import annotations
 
@@ -175,7 +176,7 @@ class BigsetService:
         self,
         cluster: BigsetCluster,
         config: Optional[ServiceConfig] = None,
-        clock: Callable[[], float] = time.monotonic,
+        clock: Callable[[], float] = time.monotonic,  # bigset-lint-torch: disable=BS001 -- default for the *injectable* lease/budget clock; tests inject a fake
         tracer: Optional[Tracer] = None,
         metrics: Optional[MetricsRegistry] = None,
     ):
@@ -278,7 +279,7 @@ class BigsetService:
         # unguessable: the id is the session's only credential — a
         # predictable one would let any client close (or probe) a
         # neighbor's session and destroy its cursor leases
-        sid = b"s" + secrets.token_hex(16).encode()
+        sid = b"s" + secrets.token_hex(16).encode()  # bigset-lint-torch: disable=BS001 -- the session id is a credential: unguessability beats replayability, and nothing downstream branches on its value
         self._sessions[sid] = _Session()
         return {"session": sid}
 

@@ -1,11 +1,14 @@
 """The copy guard: every module the port keeps as a copy of the JAX
 package's must equal its reference once the header docstring and the
-``# bigset-lint:`` comments are stripped from both.
+lint escapes (``# bigset-lint:`` and the port's ``# bigset-lint-torch:``)
+are stripped from both.
 
 The port copies a module it needs unchanged (it never imports ``repro``),
-and adds only a header docstring naming the module it mirrors, plus the
-lint suppressions its own paths need (the lint scopes layers by a
-``repro`` path part).  This test stands in for porting the reference's
+and adds only a header docstring naming the module it mirrors, plus lint
+escapes: the port's linter (``repro_torch.analysis``) reads only its own
+directive, and the reference's linter, which still lints all of ``src/``
+and finds no layer under ``src/repro_torch/``, keeps the escapes it needs
+there.  This test stands in for porting the reference's
 case-by-case tests of the copied layers (``test_bigset.py``,
 ``test_clock.py``, ``test_orswot.py``, ``test_storage.py``,
 ``test_streaming.py``, ``test_obs.py``, ``test_props_extra.py``): the code
@@ -24,6 +27,18 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 REF, PORT = SRC / "repro", SRC / "repro_torch"
 
 COPIES = (
+    "analysis/__init__.py",
+    "analysis/report.py",
+    "analysis/resolve.py",
+    "analysis/rules/__init__.py",
+    "analysis/rules/base.py",
+    "analysis/rules/bs002_billed_send.py",
+    "analysis/rules/bs003_clock_mutation.py",
+    "analysis/rules/bs004_bare_assert.py",
+    "analysis/rules/bs005_query_folds.py",
+    "analysis/rules/bs007_memtable_mutation.py",
+    "analysis/rules/bs008_dot_enumeration.py",
+    "analysis/rules/bs009_vnode_indexing.py",
     "checkpoint/__init__.py",
     "cluster/__init__.py",
     "cluster/antientropy.py",
@@ -73,12 +88,13 @@ COPIES = (
     "train/data.py",
 )
 
-_LINT = re.compile(r"\s*# bigset-lint:.*$")
+_LINT = re.compile(r"\s*# bigset-lint(?:-torch)?:.*$")
 
 
 def code_of(path: Path):
     """The module's lines after its header docstring, with every
-    ``# bigset-lint:`` comment cut from the end of its line."""
+    ``# bigset-lint:`` or ``# bigset-lint-torch:`` comment cut from the end
+    of its line."""
     text = path.read_text()
     tree = ast.parse(text)
     start = 0

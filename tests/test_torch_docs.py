@@ -33,8 +33,8 @@ def runners():
 
 def test_port_cookbook_executes_green_on_the_cpu(runners, capsys):
     blocks = runners["port"].run_file(PORT_DOCS / PAGE, "cpu")
-    # the reference page's blocks but its lint block (the linter is shared
-    # and not ported): shrinking this page needs a deliberate edit
+    # the reference page's blocks, its lint block on the port's linter:
+    # shrinking this page needs a deliberate edit
     assert blocks >= 18
     assert len(_printed(capsys.readouterr().out)) == len(PRINTED)
 
@@ -49,7 +49,7 @@ def test_port_cookbook_prints_the_reference_pages_lines(runners, capsys):
 
 def test_port_cookbook_main_takes_a_device(runners, capsys):
     assert runners["port"].main(["--device", "cpu"]) >= 18
-    assert "cookbook: 18 blocks executed green" in capsys.readouterr().out
+    assert "cookbook: 19 blocks executed green" in capsys.readouterr().out
 
 
 def test_port_docs_links_resolve():
