@@ -1,0 +1,7 @@
+"""The calls of mamba_scan in the traced window against its roofline, from
+the device trace (work counted by work/mamba_scan.py)."""
+from portbench.metrics import roofline
+
+
+def read(run):
+    return roofline(run, "mamba_scan")
